@@ -18,21 +18,23 @@
 // read as broadcast float4); applies BN, ReLU and the rounding; keeps the
 // conv tile in shared memory; and max-pools it straight into NHWC output,
 // so only the pooled activations reach device memory. Conv pixels past the
-// image's last row or column are -inf, the pool's 'SAME' padding.
+// image's last row or column are -inf, the pool's 'SAME' padding. The
+// normalize, conv and BN arithmetic is in stem_common.cuh, which the
+// backward (stem_bwd.cu) calls too.
 #include <math.h>
 
-#include "common.cuh"
+#include "stem_common.cuh"
 
 namespace {
 
-constexpr int kF = 64;              // output channels
+using tdnet::stem::kF;
+using tdnet::stem::kTaps;
 constexpr int kTP = 4;              // pooled rows per block
 constexpr int kTQ = 16;             // pooled cols per block
 constexpr int kCR = 2 * kTP + 1;    // conv rows per block
 constexpr int kCC = 2 * kTQ + 1;    // conv cols per block
 constexpr int kIR = 4 * kTP + 7;    // input rows per block
 constexpr int kIC = 4 * kTQ + 7;    // input cols per block
-constexpr int kTaps = 7 * 7 * 3;
 constexpr int kGroups = kF / 16;    // 16 channels per thread
 constexpr int kThreads = 256;
 
@@ -90,10 +92,8 @@ fused_stem_kernel(const uint8_t* __restrict__ in, const float* __restrict__ w,
     float v = 0.0f;  // the conv's zero padding, in normalized space
     if (gr >= 0 && gr < h && gc >= 0 && gc < wd) {
       const float mean = ch == 0 ? m0 : (ch == 1 ? m1 : m2);
-      const float x = static_cast<float>(
-          img[(static_cast<int64_t>(gr) * wd + gc) * 3 + ch]);
-      v = tdnet::to_float(
-          tdnet::round_to(__fmul_rn(__fsub_rn(x, mean), scale), T()));
+      v = tdnet::stem::normalize<T>(
+          img[(static_cast<int64_t>(gr) * wd + gc) * 3 + ch], mean, scale);
     }
     s_in[i] = v;
   }
@@ -113,31 +113,12 @@ fused_stem_kernel(const uint8_t* __restrict__ in, const float* __restrict__ w,
       continue;
     }
     float acc[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[j] = 0.0f;
-    const float* x0 = s_in + (2 * r * kIC + 2 * c) * 3;
-    for (int kr = 0; kr < 7; ++kr) {
-      for (int kc = 0; kc < 7; ++kc) {
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          const float x = x0[(kr * kIC + kc) * 3 + ch];
-          const float4* wv = reinterpret_cast<const float4*>(
-              s_w + ((kr * 7 + kc) * 3 + ch) * kF + g * 16);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 wq = wv[q];
-            acc[4 * q + 0] = fmaf(x, wq.x, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(x, wq.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(x, wq.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(x, wq.w, acc[4 * q + 3]);
-          }
-        }
-      }
-    }
+    tdnet::stem::conv_pixel<16>(s_in + (2 * r * kIC + 2 * c) * 3, kIC * 3,
+                                s_w + g * 16, acc);
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int f = g * 16 + j;
-      const float y = __fadd_rn(__fmul_rn(acc[j], s_inv[f]), s_off[f]);
+      const float y = tdnet::stem::bn(acc[j], s_inv[f], s_off[f]);
       dst[j] = tdnet::round_to(fmaxf(y, 0.0f), T());
     }
   }

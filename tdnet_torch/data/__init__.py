@@ -1,1 +1,2 @@
-"""Host-side data: numpy image preprocessing and shape buckets."""
+"""Host-side data: numpy image preprocessing, shape buckets, the batch
+loader and the device prefetcher."""

@@ -1,2 +1,3 @@
-"""Ops: anchors, box transforms, the deferred NMS tail, and the hand-written
-CUDA kernels' wrappers (ingest, stem, nms_kernel)."""
+"""Ops: anchors, box transforms, anchor targets, losses, the deferred NMS
+tail, the trainable fused stem, and the hand-written CUDA kernels' wrappers
+(ingest, stem and its backward, nms_kernel)."""

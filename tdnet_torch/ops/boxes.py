@@ -1,8 +1,9 @@
-"""Box decode, clipping and pairwise IoU on tensors, the counterpart of
-``tdnet/ops/boxes.py``.
+"""Box encode/decode, clipping and pairwise IoU on tensors, the counterpart
+of ``tdnet/ops/boxes.py``.
 
 Regression targets are corner-parameterized and normalized with mean 0 /
-std 0.2; :func:`bbox_transform_inv` is their exact inverse. IoU comes in
+std 0.2 (:func:`bbox_transform`); :func:`bbox_transform_inv` is their exact
+inverse. IoU comes in
 two conventions: "exact" (continuous, what NMS uses) and "legacy" (the
 Fast-R-CNN +1 pixel convention of anchor targets and mAP evaluation).
 The operation order follows the reference, so the float32 results agree
@@ -15,10 +16,28 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["bbox_transform_inv", "clip_boxes", "box_iou"]
+__all__ = ["bbox_transform", "bbox_transform_inv", "clip_boxes", "box_iou"]
 
 DEFAULT_MEAN = (0.0, 0.0, 0.0, 0.0)
 DEFAULT_STD = (0.2, 0.2, 0.2, 0.2)
+
+
+def bbox_transform(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                   mean: Sequence[float] = DEFAULT_MEAN,
+                   std: Sequence[float] = DEFAULT_STD) -> torch.Tensor:
+    """Corner-parameterized regression targets of (..., 4) boxes against
+    (..., 4) anchors, normalized by (mean, std)."""
+    mean = torch.tensor(mean, dtype=anchors.dtype, device=anchors.device)
+    std = torch.tensor(std, dtype=anchors.dtype, device=anchors.device)
+    widths = anchors[..., 2] - anchors[..., 0]
+    heights = anchors[..., 3] - anchors[..., 1]
+    targets = torch.stack([
+        (gt_boxes[..., 0] - anchors[..., 0]) / widths,
+        (gt_boxes[..., 1] - anchors[..., 1]) / heights,
+        (gt_boxes[..., 2] - anchors[..., 2]) / widths,
+        (gt_boxes[..., 3] - anchors[..., 3]) / heights,
+    ], dim=-1)
+    return (targets - mean) / std
 
 
 def bbox_transform_inv(boxes: torch.Tensor, deltas: torch.Tensor,

@@ -1,1 +1,2 @@
-"""Inference (Predictor); training comes in a later slice."""
+"""Inference (Predictor) and training: the train step, the fit loop and
+checkpoints."""

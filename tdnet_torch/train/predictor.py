@@ -26,6 +26,7 @@ import torch
 
 from tdnet_torch.data.generator import default_buckets, pick_bucket
 from tdnet_torch.data.image import CAFFE_MEAN_BGR, preprocess_image, resize_image
+from tdnet_torch.device import resolve_device
 from tdnet_torch.models.detect import detections_from_outputs
 from tdnet_torch.ops.anchors import AnchorParameters
 from tdnet_torch.ops.ingest import normalize_uint8_rows, pack_uint8_host
@@ -35,21 +36,11 @@ from tdnet_torch.weights import torch_state_from_variables
 __all__ = ["Predictor", "resolve_device"]
 
 
-def resolve_device(device=None) -> torch.device:
-    """None -> CUDA when present, else CPU. An explicit CUDA device with no
-    GPU raises; it never runs on the CPU instead."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA GPU is available")
-    return dev
-
-
 class Predictor:
-    """Batched inference on one device. The predictor owns ``model``: it
-    loads ``variables`` (the flax ``{params, batch_stats}`` tree) into it
-    when given, and moves it to the device in ``channels_last``."""
+    """Batched inference on one device (``device`` None means CUDA, and
+    raises without a GPU). The predictor owns ``model``: it loads
+    ``variables`` (the flax ``{params, batch_stats}`` tree) into it when
+    given, and moves it to the device in ``channels_last``."""
 
     def __init__(
         self,

@@ -196,16 +196,21 @@ def test_unported_tail_branches_raise():
 
 
 def test_port_imports_no_jax_pil_cv2_or_tdnet():
-    """Every tdnet_torch module imports in a fresh interpreter without
-    pulling in jax, flax, PIL, cv2, msgpack or the tdnet package."""
+    """Every tdnet_torch module, the training slice's included, and
+    chip_smoke.py import in a fresh interpreter without pulling in jax,
+    flax, optax, orbax, PIL, cv2, msgpack or the tdnet package."""
     code = """
 import importlib, pkgutil, sys
 import tdnet_torch
 for m in pkgutil.walk_packages(tdnet_torch.__path__, "tdnet_torch."):
     importlib.import_module(m.name)
+import chip_smoke
+for name in ("ops.losses", "ops.targets", "ops.stem_vjp", "train.step",
+             "train.loop", "train.checkpoint", "data.prefetch"):
+    assert "tdnet_torch." + name in sys.modules, name
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "PIL", "cv2",
-                                    "msgpack", "tdnet"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "PIL", "cv2", "msgpack", "tdnet"))
 print(len([n for n in sys.modules if n.startswith("tdnet_torch")]))
 assert not bad, bad
 """
@@ -213,4 +218,4 @@ assert not bad, bad
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15  # the whole package was imported
+    assert int(res.stdout.strip()) >= 23  # the whole package was imported
