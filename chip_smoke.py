@@ -5,9 +5,9 @@
 
 Builds the port's CUDA kernels from ``tdnet_torch/csrc/`` (into
 ``build/tdnet_torch/``), holds each kernel against its plain PyTorch version
-at the main paths' shapes and times both, and drives the port's two main
-paths with random weights made from a seed, ResNet-50 RetinaNet at full
-width and depth:
+at the main paths' shapes and times both, and drives the port's main paths
+with random weights made from a seed, RetinaNet at full width and depth
+(ResNet-50, and ResNet-101 for config 4):
 
 - batched page inference (``Predictor.predict_batch``, bf16, uint8 pages
   through the fused ingest+stem kernel, the NMS kernel in the deferred
@@ -15,7 +15,14 @@ width and depth:
 - training (in-memory pages -> ``BatchLoader`` -> the prefetcher -> ``fit``
   -> ``make_train_step`` on the fused-stem route with its backward kernel,
   bf16, batch 8 at 800x1344, 20 steps on one batch), a checkpoint round
-  trip, then one f32 step on CUDA against the same step on the CPU.
+  trip, then one f32 step on CUDA against the same step on the CPU;
+- multi-class soft-NMS inference (config 5: 3-class ResNet-50, bf16, the
+  deferred tail's soft-NMS kernel in place of the NMS kernel), then
+  CUDA-vs-CPU f32 detections;
+- ResNet-101 at the 1024x1024 bucket (config 4: bf16, batch 16, every
+  stage's identity run through the fused bottleneck kernel), then
+  CUDA-vs-CPU f32 detections at 512x512 and the f32 model with the kernel
+  on and off.
 
 The launch counters, set to 0 just before each path and read just after,
 show that it went through its kernels.
@@ -54,12 +61,32 @@ STEM_BWD_SHAPE = (8, 800, 1344 * 3)   # the train phase's batch
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 20, 3e-4
 TRAIN_PAGE = (800, 1300)              # resize scale 1.0 -> bucket 800x1344
 PARITY_SIDES, PARITY_PAGE = (256, 384), (256, 384)
+SOFT_ROWS, SOFT_K, SOFT_PICKS = 48, 1024, 300  # config 5: 16 pages x 3 classes
+SOFT_SIGMA = 0.5
+# config 4 at batch 4: (stage, H = W, C, M, chain depth)
+BLOCK_STAGES = [(2, 256, 256, 64, 2), (3, 128, 512, 128, 3),
+                (4, 64, 1024, 256, 3), (5, 32, 2048, 512, 2)]
+BLOCK_BATCH = 4
+# the bf16 (tensor-core) block at depth 1 vs its plain version: least share
+# of outputs within 1 bf16 ulp, most ulps of max(|v|, 1) of any output, most
+# relative Frobenius error. Set from the sound readings at the four stage
+# shapes on an H100 (>= 0.9966, 1 ulp, <= 5.5e-4), below every control's
+# (share <= 0.995, or >= 3 ulp, and rel-Frobenius >= 1.8e-3); PERF.md.
+BLOCK_BF16_LIMITS = {"share_within_1ulp": 0.99, "max_ulps_floor1": 2.0,
+                     "rel_fro": 1e-3}
+R101_SIDE, R101_PAGE, R101_PAGES = 1024, (1100, 1000), 16  # -> 1024x931, bucket 1024^2
+R101_PARITY_SIDE = 512
+# identity blocks of ResNet-101 (3, 4, 23, 3 blocks a stage), one launch each
+R101_BLOCK_LAUNCHES = 2 + 3 + 22 + 2
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
 # and f32 (outside the tensor cores) operations/s
 PEAK = {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12}
 # operations of one exact IoU in the NMS kernel: 2 max, 2 min, 2 subtract,
 # 2 clamps, a product, the union's add and subtract, a divide, a compare
 IOU_OPS = 13
+# operations of one soft-NMS decay step: the IoU, the gaussian's square,
+# negate, divide and exp, the product with the score, and the argmax compare
+SOFT_OPS = IOU_OPS + 4 + 1 + 1
 
 
 class PhaseError(RuntimeError):
@@ -263,8 +290,272 @@ def phase_kernels(dev):
     del boxes, valid, got, want
 
     results["stem_bwd"] = check_stem_bwd(dev, rng, k7, inv, off)
+    results["soft_nms"] = check_soft_nms(dev, rng)
+    results["block"] = check_block(dev, rng)
     emit({"phase": "kernels", "ok": True, "results": results})
     return results
+
+
+def check_soft_nms(dev, rng):
+    """The soft-NMS kernel vs its plain version at config 5's rows: 48 rows
+    of 1024 clustered candidates with a 100-slot below-threshold tail (as
+    the deferred tail hands them over: score 0), the last row's second half
+    an exact copy of its first (exact ties: the lowest index is picked
+    first; linear decay reaches 0 at IoU 1), gaussian sigma 0.5 and linear
+    at IoU 0.3, 300 picks. Tolerance: rtol 1e-5, atol 1e-6 (the reference's,
+    tests/ops/test_soft_nms.py); rows whose set of selected boxes differs:
+    0."""
+    import numpy as np
+    import torch
+
+    from tdnet_torch.ops import soft_nms
+
+    r, k = SOFT_ROWS, SOFT_K
+    centres = rng.uniform(0, 1344, (r, 12, 2))
+    pick = rng.randint(0, 12, (r, k))
+    c = np.take_along_axis(centres, pick[..., None], axis=1) + rng.normal(0, 12, (r, k, 2))
+    wh = rng.uniform(20, 300, (r, k, 2))
+    boxes_np = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    scores_np = np.sort(rng.uniform(0.05, 1.0, (r, k)), axis=1)[:, ::-1].astype(np.float32)
+    scores_np[:, -100:] = 0.0
+    boxes_np[-1, k // 2:] = boxes_np[-1, :k // 2]
+    scores_np[-1, k // 2:] = scores_np[-1, :k // 2]
+    boxes = torch.from_numpy(boxes_np).to(dev)
+    scores = torch.from_numpy(np.ascontiguousarray(scores_np)).to(dev)
+    checks, worst = [], 0.0
+    for method in ("gaussian", "linear"):
+        kw = dict(method=method, sigma=SOFT_SIGMA, iou_threshold=0.3,
+                  max_selections=SOFT_PICKS)
+        got = soft_nms.soft_nms_rescore_batched(boxes, scores, **kw)
+        want = soft_nms.soft_nms_rescore_plain(boxes, scores, **kw)
+        require(torch.isfinite(got).all().item(), f"soft_nms {method}: non-finite")
+        d = (got - want).abs()
+        err = d.max().item()
+        worst = max(worst, err)
+        rows_differ = int(((got > 0) != (want > 0)).any(dim=1).sum().item())
+        picked = int((want > 0).sum().item())
+        checks.append({"method": method, "max_abs_err": err,
+                       "rows_with_other_selections": rows_differ,
+                       "selected": picked,
+                       "decayed_before_pick": int(((want > 0) & (want < scores)).sum().item())})
+        require(bool((d <= 1e-6 + 1e-5 * want.abs()).all().item()),
+                f"soft_nms {method}: beyond rtol 1e-5 / atol 1e-6 (max {err})")
+        require(rows_differ == 0, f"soft_nms {method}: {rows_differ} rows select other boxes")
+        dup = got[-1].cpu().numpy()
+        require(dup[0] > 0 and dup[k // 2] < dup[0],
+                f"soft_nms {method}: the tie rule did not pick the lower index first")
+        if method == "gaussian":
+            picks_per_row = (want > 0).sum(dim=1)
+            valid = (scores > 0.001).sum(dim=1)
+            # each pick decays every remaining (finite) candidate of its row
+            steps = sum(int(vr) * int(pr) - int(pr) * (int(pr) + 1) // 2
+                        for vr, pr in zip(valid.tolist(), picks_per_row.tolist()))
+            timed = {
+                "ms": median_ms(lambda: soft_nms.soft_nms_rescore_batched(boxes, scores, **kw)),
+                "plain_ms": median_ms(lambda: soft_nms.soft_nms_rescore_plain(
+                    boxes, scores, **kw), iters=5),
+                "bound": bound(boxes.numel() * 4 + 2 * scores.numel() * 4,
+                               SOFT_OPS * steps, "f32")}
+    return {"max_abs_err": worst, **timed, "shape": [r, k], "picks": SOFT_PICKS,
+            "checks": checks}
+
+
+def _chain_inputs(rng, dev, depth, hw, c, m, batch):
+    """x and a depth-D chain's weights, scaled so activations stay O(1)."""
+    import numpy as np
+    import torch
+
+    def f(*shape, s=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(np.float32)).to(dev)
+
+    def u(*shape):
+        return torch.from_numpy(rng.uniform(0.5, 1.5, shape).astype(np.float32)).to(dev)
+
+    x = f(batch, hw, hw, c)
+    weights = (f(depth, c, m, s=c ** -0.5), f(depth, 3, 3, m, m, s=(9 * m) ** -0.5),
+               f(depth, m, c, s=0.5 * m ** -0.5), u(depth, m), f(depth, m, s=0.1),
+               u(depth, m), f(depth, m, s=0.1), u(depth, c), f(depth, c, s=0.1))
+    return x, weights
+
+
+def bf16_readings(got, want):
+    """How far a bf16 result lies from its reference: the share of elements
+    within 1 bf16 ulp of the larger magnitude (or 1e-5), the largest error
+    in ulps of max(|value|, 1) (a ReLU whose input lands near 0 switches
+    between exact 0 and a small value, where a ulp of the value itself
+    means nothing), and the relative Frobenius error."""
+    import torch
+
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    big = torch.maximum(got.abs(), want.abs())
+    ulp = bf16_ulp(big)
+    return {"share_within_1ulp": ((d <= ulp) | (d <= 1e-5)).float().mean().item(),
+            "share_exact": (d == 0).float().mean().item(),
+            "max_ulps_floor1": (d / bf16_ulp(big.clamp_min(1.0))).max().item(),
+            "rel_fro": rel_fro(got, want), "max_abs_err": d.max().item()}
+
+
+def bf16_block_ok(r) -> bool:
+    lim = BLOCK_BF16_LIMITS
+    return (r["share_within_1ulp"] >= lim["share_within_1ulp"]
+            and r["max_ulps_floor1"] <= lim["max_ulps_floor1"]
+            and r["rel_fro"] <= lim["rel_fro"])
+
+
+def _block_variant(x, weights, accumulate="f32", pad="t1"):
+    """One bf16 identity block (depth 1) as the plain version computes it,
+    with matrix products instead of convolutions, changed where asked:
+    accumulate "f64" (products and BN in float64: the rounding points'
+    exact values), "bf16" (every 32-deep partial product rounded to bf16
+    and summed in bf16, as a kernel that kept its accumulator in bf16
+    between k-chunks would) or "f32"; pad "x" zero-pads x instead of t1
+    (conv2's SAME padding in the wrong place)."""
+    import torch
+    import torch.nn.functional as F
+
+    w1, w2, w3, i1, o1, i2, o2, i3, o3 = (t[0] for t in weights)
+    cd = x.dtype
+    f = torch.float64 if accumulate == "f64" else torch.float32
+
+    def mm(a, w):
+        w = w.to(cd).to(f)
+        if accumulate != "bf16":
+            return a @ w
+        acc = None
+        for k0 in range(0, a.shape[-1], 32):
+            part = (a[..., k0:k0 + 32] @ w[k0:k0 + 32]).to(torch.bfloat16)
+            acc = part if acc is None else acc + part
+        return acc.to(f)
+
+    def bn_relu(t, inv, off):
+        return torch.relu(t * inv.to(f) + off.to(f))
+
+    b, h, w, c = x.shape
+    m = w1.shape[1]
+    xf = x.to(f)
+    if pad == "x":
+        t1p = bn_relu(mm(F.pad(xf, (0, 0, 1, 1, 1, 1)), w1), i1, o1).to(cd).to(f)
+    else:
+        t1p = F.pad(bn_relu(mm(xf, w1), i1, o1).to(cd).to(f), (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([t1p[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)],
+                     dim=-1)
+    t2 = bn_relu(mm(cols, w2.reshape(9 * m, m)), i2, o2).to(cd).to(f)
+    return torch.relu(mm(t2, w3) * i3.to(f) + o3.to(f) + xf).to(cd)
+
+
+def check_block(dev, rng):
+    """The fused bottleneck kernel vs its plain version on config 4's four
+    stage shapes at batch 4.
+
+    f32 (TF32 off, the CUDA-core body): the stage's chain, within rtol =
+    atol = 3e-5 (tests/ops/test_pallas_block.py's chain bound).
+
+    bf16 (the tensor-core body, config 4's path): one block at each stage,
+    held to BLOCK_BF16_LIMITS. The tensor cores accumulate in f32 but do
+    not round like the plain version's FMA chain, so a t1 or t2 value near a
+    bf16 rounding boundary can round the other way, and moves the rest of
+    its pixel by an ulp. Controls, judged by the same limits, must fail:
+    the block with its products summed in bf16 between 32-deep chunks, with
+    SAME padding on x instead of t1, and the kernel itself fed a 3x3 filter
+    whose left and right taps are swapped, or its BN vectors rounded to
+    bf16. Reported beside them: the kernel's and the plain version's
+    distance from the float64 block.
+
+    Timed: stage 4's 3-block chain in bf16, and the port's unfused path
+    (cuDNN blocks) on the same input and weights as the library
+    yardstick."""
+    import torch
+
+    from tdnet_torch.models.resnet import Bottleneck
+    from tdnet_torch.ops import block
+
+    checks, worst, timed = [], 0.0, None
+    for stage, hw, c, m, depth in BLOCK_STAGES:
+        x32, weights = _chain_inputs(rng, dev, depth, hw, c, m, BLOCK_BATCH)
+        info = {"stage": stage, "shape": [BLOCK_BATCH, hw, hw, c], "cmid": m}
+        # f32: the whole chain
+        got = block.fused_bottleneck_chain(x32, *weights)
+        want = block.fused_bottleneck_chain_plain(x32, *weights)
+        require(torch.isfinite(got).all().item(), f"block stage {stage} f32: non-finite")
+        d = (got - want).abs()
+        err = d.max().item()
+        worst = max(worst, err)
+        require(bool((d <= 3e-5 + 3e-5 * want.abs()).all().item()),
+                f"block stage {stage} f32: beyond rtol/atol 3e-5 (max {err})")
+        info["f32"] = {"depth": depth, "max_abs_err": err,
+                       "scale": want.abs().max().item()}
+        del got, want, d
+        # bf16: one block, its readings and the controls'
+        x = x32.to(torch.bfloat16)
+        one = tuple(t[:1] for t in weights)
+        got = block.fused_bottleneck_chain(x, *one)
+        want = block.fused_bottleneck_chain_plain(x, *one)
+        require(torch.isfinite(got).all().item(), f"block stage {stage} bf16: non-finite")
+        sound = bf16_readings(got, want)
+        worst = max(worst, sound["max_abs_err"])
+        swapped = one[1].clone()
+        swapped[:, 1, 0], swapped[:, 1, 2] = one[1][:, 1, 2], one[1][:, 1, 0]
+        bn16 = tuple(t.to(torch.bfloat16).float() for t in one[3:])
+        controls = {
+            "accumulate_bf16": _block_variant(x, one, accumulate="bf16"),
+            "pad_x_not_t1": _block_variant(x, one, pad="x"),
+            "kernel_taps_swapped": block.fused_bottleneck_chain(
+                x, one[0], swapped, *one[2:]),
+            "kernel_bn_rounded_to_bf16": block.fused_bottleneck_chain(x, *one[:3], *bn16),
+        }
+        controls = {k: bf16_readings(v, want) for k, v in controls.items()}
+        f64 = _block_variant(x, one, accumulate="f64")
+        info["bf16"] = {
+            "depth": 1, "scale": want.float().abs().max().item(), "kernel": sound,
+            "controls": controls,
+            "kernel_vs_f64": bf16_readings(got, f64),
+            "plain_vs_f64": bf16_readings(want, f64)}
+        require(bf16_block_ok(sound), f"block stage {stage} bf16: {sound} "
+                                      f"beyond {BLOCK_BF16_LIMITS}")
+        for name, r in controls.items():
+            require(not bf16_block_ok(r),
+                    f"block stage {stage} bf16: control {name} passes the limits: {r}")
+        checks.append(info)
+        del got, want, f64, swapped
+        if stage == 4:
+            blocks = []
+            for d in range(depth):
+                blk = Bottleneck(c, m).to(dev)
+                with torch.no_grad():
+                    blk.conv1.weight.copy_(weights[0][d].t()[:, :, None, None])
+                    blk.conv2.weight.copy_(weights[1][d].permute(3, 2, 0, 1))
+                    blk.conv3.weight.copy_(weights[2][d].t()[:, :, None, None])
+                    for j, bn in enumerate((blk.bn1, blk.bn2, blk.bn3)):
+                        bn.scale.copy_(weights[3 + 2 * j][d])
+                        bn.bias.copy_(weights[4 + 2 * j][d])
+                        bn.var.fill_(1.0 - bn.epsilon)  # folds to inv = scale
+                blocks.append(blk.to(memory_format=torch.channels_last).eval())
+
+            def unfused():
+                with torch.inference_mode():
+                    y = x.permute(0, 3, 1, 2)
+                    for blk in blocks:
+                        y = blk(y)
+                    return y
+
+            flops = 2 * BLOCK_BATCH * hw * hw * depth * (2 * c * m + 9 * m * m)
+            wbytes = depth * (2 * c * m + 9 * m * m) * 2 + depth * (4 * m + 2 * c) * 4
+            timed = {
+                "ms": median_ms(lambda: block.fused_bottleneck_chain(x, *weights)),
+                "plain_ms": median_ms(lambda: block.fused_bottleneck_chain_plain(x, *weights),
+                                      iters=5),
+                "library_ms": median_ms(unfused),
+                "timed_shape": [BLOCK_BATCH, hw, hw, c], "timed_cmid": m,
+                "timed_depth": depth, "timed_dtype": "bfloat16",
+                "timed_gflop": flops / 1e9,
+                # bf16 x in and out, bf16 weights, f32 BN; bf16 tensor cores
+                "bound": bound(2 * x.numel() * 2 + wbytes, flops, "bf16")}
+            del blocks
+        del x, x32, weights
+    return {"max_abs_err": worst, **timed, "checks": checks,
+            "bf16_limits": BLOCK_BF16_LIMITS,
+            "library": "the port's unfused path: 3 Bottleneck modules, cuDNN bf16 convs"}
 
 
 def nms_pairs(keep) -> int:
@@ -428,7 +719,7 @@ def smoke_variables():
     return v
 
 
-def check_detections(out, pages, buckets, scales):
+def check_detections(out, pages, buckets, scales, num_classes=1):
     import numpy as np
 
     total = 0
@@ -443,7 +734,8 @@ def check_detections(out, pages, buckets, scales):
             require(bb.min() >= 0, "box below 0")
             require(bb[:, [0, 2]].max() <= bucket[1] / scale + 1e-3, "box x beyond canvas")
             require(bb[:, [1, 3]].max() <= bucket[0] / scale + 1e-3, "box y beyond canvas")
-            require((s[ok] > 0.05).all() and (l[ok] == 0).all(), "bad scores/labels")
+            require((s[ok] > 0.05).all() and (l[ok] >= 0).all()
+                    and (l[ok] < num_classes).all(), "bad scores/labels")
     return total
 
 
@@ -552,42 +844,53 @@ def _match(got, want, rtol=1e-4, px=0.5):
     return worst
 
 
+def _gap_threshold(probe):
+    """A score threshold in the widest gap between the detections ranked
+    30..120 of a probe run, and that gap: every detection is clear of it."""
+    import numpy as np
+
+    s = np.sort(np.concatenate([p[1][p[1] > -1] for p in probe]))[::-1]
+    require(s.size > 120, f"only {s.size} detections to set a threshold from")
+    gaps = s[30:120] - s[31:121]
+    i = 30 + int(np.argmax(gaps))
+    return float((s[i] + s[i + 1]) / 2), float(gaps.max())
+
+
+def _device_parity(make_predictor, pages, dev):
+    """The same pages through make_predictor(device, score_threshold) on
+    CUDA (the kernels) and on the CPU (their plain versions), with the
+    threshold set in the widest gap of a CUDA probe run; each page's
+    detections matched by :func:`_match`."""
+    import torch
+
+    thr, gap = _gap_threshold(make_predictor(dev, 0.05).predict_batch(pages))
+    runs = {name: make_predictor(d, thr).predict_batch(pages)
+            for name, d in (("gpu", dev), ("cpu", torch.device("cpu")))}
+    worst, n = 0.0, 0
+    for got, want in zip(runs["gpu"], runs["cpu"]):
+        worst = max(worst, _match(got, want))
+        n += int((got[1] > -1).sum())
+    require(n > 0, "parity compared no detections")
+    return {"pages": len(pages), "score_threshold": thr, "threshold_gap": gap,
+            "detections_compared": n, "max_box_diff_px": worst,
+            "score_rtol": 1e-4, "box_tol_px": 0.5}
+
+
 def phase_parity(dev, variables):
     """2 pages in f32 through the Predictor on CUDA (the kernels) and on the
     CPU (their plain versions). The score threshold is set inside the
     widest gap of the CUDA run's scores (ranks 30..120), so every
     detection is clear of it."""
-    import numpy as np
-    import torch
-
     from tdnet_torch.models.retinanet import RetinaNet
     from tdnet_torch.train.predictor import Predictor
 
-    pages = synthetic_pages(2, 0, SEED + 1)
     sides = dict(min_side=MIN_SIDE, max_side=MAX_SIDE)
-    probe = Predictor(RetinaNet(1), variables, device=dev,
-                      device_preprocess=True, **sides).predict_batch(pages)
-    s = np.sort(np.concatenate([p[1][p[1] > -1] for p in probe]))[::-1]
-    require(s.size > 120, f"only {s.size} detections to set a threshold from")
-    gaps = s[30:120] - s[31:121]
-    i = 30 + int(np.argmax(gaps))
-    thr = float((s[i] + s[i + 1]) / 2)
-
-    runs = {}
-    for name, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
-        pred = Predictor(RetinaNet(1), variables, device=d,
-                         device_preprocess=True, score_threshold=thr, **sides)
-        runs[name] = pred.predict_batch(pages)
-    worst = 0.0
-    n = 0
-    for got, want in zip(runs["gpu"], runs["cpu"]):
-        worst = max(worst, _match(got, want))
-        n += int((got[1] > -1).sum())
-    require(n > 0, "parity compared no detections")
-    emit({"phase": "parity", "ok": True, "pages": len(pages),
-          "score_threshold": thr, "threshold_gap": float(gaps.max()),
-          "detections_compared": n, "max_box_diff_px": worst,
-          "score_rtol": 1e-4, "box_tol_px": 0.5})
+    res = _device_parity(
+        lambda d, thr: Predictor(RetinaNet(1), variables, device=d,
+                                 device_preprocess=True, score_threshold=thr,
+                                 **sides),
+        synthetic_pages(2, 0, SEED + 1), dev)
+    emit({"phase": "parity", "ok": True, **res})
 
 
 def _host_batch(pages, boxes, sides, batch_size):
@@ -795,6 +1098,176 @@ def phase_train_parity(dev):
           "whole_grad_rel_fro": total, "tensors_compared": len(cg)})
 
 
+def _timed_predict(pred, pages, counters, dev):
+    """One predict_batch with the launch counters and the predictor's
+    host/dispatch counters set to 0 just before it and read just after."""
+    import torch
+
+    for c in counters.values():
+        c.reset()
+    pred.host_prep_s = pred.dispatch_s = 0.0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.monotonic()
+    out = pred.predict_batch(pages)
+    elapsed = time.monotonic() - t0
+    return out, elapsed, {k: c.count for k, c in counters.items()}
+
+
+def _all_counters():
+    from tdnet_torch.ops import block, ingest, nms_kernel, soft_nms, stem
+
+    return {"ingest": ingest.LAUNCHES, "stem": stem.LAUNCHES,
+            "nms": nms_kernel.LAUNCHES, "soft_nms": soft_nms.LAUNCHES,
+            "block": block.LAUNCHES}
+
+
+def phase_predict_soft(dev):
+    """Config 5: 3-class page layout with soft-NMS. Predictor.predict_batch
+    on RetinaNet(3, resnet50) in bf16, the 16 pages of the predict phase
+    (both buckets), uint8 through the fused stem, the class-specific
+    deferred tail with soft_nms_sigma 0.5: the soft-NMS kernel rescores
+    B*3 rows of 1024 candidates and the NMS kernel does not run. Then 2
+    pages in f32, CUDA vs the CPU (pre_nms_top_k 200 and 100 detections, so
+    fewer near-equal candidates can trade places in the greedy order)."""
+    import torch
+
+    import tdnet_torch.ops.nms as nms_mod
+    from tdnet_torch.data.generator import default_buckets, pick_bucket
+    from tdnet_torch.data.image import compute_resize_scale
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.train.predictor import Predictor
+    from tdnet_torch.weights import random_variables
+
+    variables = random_variables(3, "resnet50", seed=SEED)
+    variables["params"]["classification_submodel"]["head"]["bias"][:] = -2.0
+    pages = synthetic_pages(N_LANDSCAPE, N_PORTRAIT, SEED)
+    scales = [compute_resize_scale(p.shape, MIN_SIDE, MAX_SIDE) for p in pages]
+    buckets = [pick_bucket(round(p.shape[0] * s), round(p.shape[1] * s),
+                           default_buckets(MIN_SIDE, MAX_SIDE))
+               for p, s in zip(pages, scales)]
+    sides = dict(min_side=MIN_SIDE, max_side=MAX_SIDE, soft_nms_sigma=SOFT_SIGMA)
+    pred = Predictor(RetinaNet(3, dtype=torch.bfloat16), variables, device=dev,
+                     device_preprocess=True, **sides)
+    require(pred.fused_stem, "fused_stem did not resolve on for CUDA")
+
+    # warm-up run that records what the soft-NMS kernel was given and did
+    rows = []
+    orig = nms_mod.soft_nms_rescore_batched
+
+    def recording(boxes, scores, **kw):
+        out = orig(boxes, scores, **kw)
+        rows.append({"rows": boxes.shape[0], "k": boxes.shape[1],
+                     "selected": int((out > 0).sum().item()),
+                     "changed": int(((out > 0) & (out < scores)).sum().item())})
+        return out
+
+    nms_mod.soft_nms_rescore_batched = recording
+    try:
+        pred.predict_batch(pages)
+    finally:
+        nms_mod.soft_nms_rescore_batched = orig
+    require(rows and sum(r["changed"] for r in rows) >= 1,
+            f"soft-NMS changed no score: {rows}")
+
+    counters = _all_counters()
+    out, elapsed, launches = _timed_predict(pred, pages, counters, dev)
+    n_det = check_detections(out, pages, buckets, scales, num_classes=3)
+    labels = {int(v) for _, s, lab in out for v in lab[s > -1]}
+    require(launches["soft_nms"] >= 1 and launches["stem"] >= 1
+            and launches["nms"] == 0, f"config 5 launches: {launches}")
+    require(labels <= {0, 1, 2} and len(labels) > 1, f"labels {labels}")
+
+    parity = _device_parity(
+        lambda d, thr: Predictor(RetinaNet(3), variables, device=d,
+                                 device_preprocess=True, score_threshold=thr,
+                                 pre_nms_top_k=200, max_detections=100, **sides),
+        synthetic_pages(2, 0, SEED + 1), dev)
+    emit({"phase": "predict_soft", "ok": True, "config": 5,
+          "model": "resnet50 retinanet, 3 classes", "dtype": "bfloat16",
+          "pages": len(pages), "buckets": sorted({str(b) for b in buckets}),
+          "soft_nms_sigma": SOFT_SIGMA, "images_per_s": len(pages) / elapsed,
+          "seconds": elapsed, "host_prep_s": pred.host_prep_s,
+          "dispatch_s": pred.dispatch_s, "detections": n_det,
+          "labels": sorted(labels), "soft_nms_rows": rows,
+          "launches": launches,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                          if dev.type == "cuda" else None),
+          "parity_f32": parity})
+    return launches
+
+
+def phase_predict_r101(dev):
+    """Config 4: ResNet-101 RetinaNet at the 1024x1024 bucket.
+    Predictor.predict_batch in bf16 with block_kernel=True on 16 near-square
+    pages (one dispatch of batch 16), uint8 through the fused stem, hard NMS:
+    every stage's identity run goes through the fused bottleneck kernel,
+    one launch per block (29 a dispatch). Then 2 pages in f32 at a 512x512
+    bucket (every stage passes the gate there too), CUDA vs the CPU, and the
+    f32 model with the kernel on and off on CUDA (rtol = atol = 2e-4,
+    tests/ops/test_pallas_block.py's model bound)."""
+    import numpy as np
+    import torch
+
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.train.predictor import Predictor
+    from tdnet_torch.weights import random_variables
+
+    variables = random_variables(1, "resnet101", seed=SEED)
+    variables["params"]["classification_submodel"]["head"]["bias"][:] = -2.0
+    pages = synthetic_pages(R101_PAGES, 0, SEED + 4, sizes=(R101_PAGE, None))
+    sides = dict(min_side=R101_SIDE, max_side=R101_SIDE)
+    pred = Predictor(RetinaNet(1, "resnet101", dtype=torch.bfloat16, block_kernel=True),
+                     variables, device=dev, device_preprocess=True, **sides)
+    require(pred.buckets == [(R101_SIDE, R101_SIDE)], f"buckets {pred.buckets}")
+    pred.predict_batch(pages)  # warm-up
+    counters = _all_counters()
+    out, elapsed, launches = _timed_predict(pred, pages, counters, dev)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+    scale = R101_SIDE / max(R101_PAGE)
+    n_det = check_detections(out, pages, [(R101_SIDE, R101_SIDE)] * len(pages),
+                             [scale] * len(pages))
+    require(pred.dispatch_count >= 1, "no dispatch")
+    require(launches["block"] == R101_BLOCK_LAUNCHES and launches["stem"] >= 1
+            and launches["nms"] >= 1, f"config 4 launches: {launches}")
+
+    small = dict(min_side=R101_PARITY_SIDE, max_side=R101_PARITY_SIDE)
+    parity_pages = synthetic_pages(2, 0, SEED + 5, sizes=((550, 500), None))
+    parity = _device_parity(
+        lambda d, thr: Predictor(RetinaNet(1, "resnet101", block_kernel=True), variables,
+                                 device=d, device_preprocess=True,
+                                 score_threshold=thr, **small),
+        parity_pages, dev)
+
+    # the f32 model, kernel on and off, on the same normalized images
+    model = Predictor(RetinaNet(1, "resnet101"), variables, device=dev, **small).model
+    x = torch.from_numpy(np.random.RandomState(SEED).normal(
+        0, 50, (2, R101_PARITY_SIDE, R101_PARITY_SIDE, 3)).astype(np.float32)).to(dev)
+    block_before = counters["block"].count
+    outs = {}
+    with torch.inference_mode():
+        for on in (False, True):
+            outs[on] = model(x, block_kernel=on)
+    require(counters["block"].count - block_before == R101_BLOCK_LAUNCHES,
+            "the kernel-on model did not run the block kernel")
+    on_off = 0.0
+    for key in ("regression", "classification"):
+        a, b = outs[True][key], outs[False][key]
+        on_off = max(on_off, (a - b).abs().max().item())
+        require(bool(((a - b).abs() <= 2e-4 + 2e-4 * b.abs()).all().item()),
+                f"{key}: kernel on vs off beyond rtol/atol 2e-4")
+    emit({"phase": "predict_r101", "ok": True, "config": 4,
+          "model": "resnet101 retinanet, 1 class, block_kernel", "dtype": "bfloat16",
+          "pages": len(pages), "bucket": [R101_SIDE, R101_SIDE],
+          "images_per_s": len(pages) / elapsed, "seconds": elapsed,
+          "host_prep_s": pred.host_prep_s, "dispatch_s": pred.dispatch_s,
+          "detections": n_det, "launches": launches, "peak_mem_gb": peak,
+          "parity_f32_512": parity, "f32_kernel_on_vs_off_max_abs": on_off})
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "tdnet_torch" / "__init__.py").is_file():
         print("chip_smoke: tdnet_torch/ is missing next to this script",
@@ -821,6 +1294,10 @@ def main() -> int:
         train_launches = phase_train(dev)
         phase = "train_parity"
         phase_train_parity(dev)
+        phase = "predict_soft"
+        soft_launches = phase_predict_soft(dev)
+        phase = "predict_r101"
+        r101_launches = phase_predict_r101(dev)
     except Exception as exc:  # report the failed phase, print no result
         import traceback
 
@@ -828,24 +1305,29 @@ def main() -> int:
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})
         return 1
 
-    # launches: the main paths' runs (predict's two routes, then training)
-    total = {k: launches.get(k, 0) + train_launches.get(k, 0)
-             for k in ("ingest", "stem", "nms", "stem_bwd")}
+    # launches: the main paths' runs (predict's two routes, training,
+    # config 5, config 4)
+    runs = (launches, train_launches, soft_launches, r101_launches)
     sources = {
         "ingest": ("tdnet_torch/csrc/ingest.cu", "tdnet/ops/pallas_ingest.py:137"),
         "stem": ("tdnet_torch/csrc/stem.cu", "tdnet/ops/pallas_stem.py:676"),
         "nms": ("tdnet_torch/csrc/nms.cu", "tdnet/ops/pallas_nms.py:268"),
         "stem_bwd": ("tdnet_torch/csrc/stem_bwd.cu", "tdnet/ops/pallas_stem.py:492"),
+        "soft_nms": ("tdnet_torch/csrc/soft_nms.cu", "tdnet/ops/soft_nms.py:211"),
+        "block": ("tdnet_torch/csrc/block.cu", "tdnet/ops/pallas_block.py:262"),
     }
-    # library_ms: no single PyTorch call computes any of these functions
+    # library_ms: no single PyTorch call computes the first five functions
     # (normalize + round; normalize + conv + BN + ReLU + pool; greedy NMS;
-    # the stem's pool-routed filter and BN gradients)
+    # the stem's pool-routed filter and BN gradients; soft-NMS rescoring);
+    # for block it is the port's unfused path on the same input (cuDNN
+    # bf16 convolutions and PyTorch's elementwise kernels, 3 blocks)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": total[name], "max_abs_err": kres[name]["max_abs_err"],
+         "launches": sum(r.get(name, 0) for r in runs),
+         "max_abs_err": kres[name]["max_abs_err"],
          "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"],
          "bound_ms": kres[name]["bound"][0], "bound_by": kres[name]["bound"][1],
-         "library_ms": None}
+         "library_ms": kres[name].get("library_ms")}
         for name, (src, rep) in sources.items()]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

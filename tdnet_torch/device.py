@@ -1,11 +1,14 @@
 """Device choice shared by the port's entry points (Predictor, the train
-state, the prefetcher)."""
+state, the prefetcher), and the full-f32 switch of the kernels' plain
+versions."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "no_tf32"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -16,3 +19,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {str(dev)!r} requested but no CUDA GPU is "
                            "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full-f32 cuDNN convolutions inside the block (cuDNN defaults to TF32
+    for f32 convolutions)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

@@ -11,18 +11,25 @@ Module names follow the flax tree (``conv1``, ``bn1``,
 ``stage{2..5}_block{i}``) so the weight bridge is a rename. ``forward``
 takes NCHW (``channels_last``) activations; with ``stem_input=True`` the
 input is the pooled stem output (B, 64, H/4, W/4) from the fused ingest+stem
-kernel. SE-ResNet and the fused block kernel are not ported yet.
+kernel. With ``block_kernel`` each stage's identity run (blocks 1..n-1)
+goes through the fused bottleneck kernel (``tdnet_torch/ops/block.py``) as
+one chain wherever ``supports_block`` admits the stage, as
+``tdnet/models/resnet.py`` ``_identity_run`` does; the state dict is the
+same either way. The kernel launches once per block, so the reference's
+``TDNET_CHAIN_DEPTH`` (how many blocks share a launch) has no counterpart.
+SE-ResNet is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tdnet_torch.models.layers import Conv2d, FrozenBatchNorm, same_pads
+from tdnet_torch.ops.block import fused_bottleneck_chain, supports_block
 
 __all__ = ["STAGE_SIZES", "Bottleneck", "StemConv", "ResNet", "max_pool_same"]
 
@@ -81,10 +88,12 @@ class ResNet(nn.Module):
     """(C3, C4, C5) at strides 8/16/32 from NCHW images."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, block_kernel: bool = False):
         super().__init__()
         self.dtype = dtype
         self.stage_sizes = tuple(stage_sizes)
+        self.block_kernel = block_kernel  # inference-only
+        self._chain_cache = {}  # stage -> (key, stacked chain weights)
         self.conv1 = StemConv(64)
         self.bn1 = FrozenBatchNorm(64)
         cin, filters = 64, 64
@@ -103,14 +112,62 @@ class ResNet(nn.Module):
         inv, off = self.bn1.folded()
         return self.conv1.weight.permute(2, 3, 1, 0).contiguous(), inv, off
 
-    def forward(self, x: torch.Tensor, stem_input: bool = False):
+    def forward(self, x: torch.Tensor, stem_input: bool = False,
+                block_kernel: Optional[bool] = None):
+        """``block_kernel`` None takes the module's setting."""
+        if block_kernel is None:
+            block_kernel = self.block_kernel
         x = x.to(self.dtype)
         if not stem_input:
             x = torch.relu(self.bn1(self.conv1(x)))
             x = max_pool_same(x)
         outputs = []
         for stage, num_blocks in enumerate(self.stage_sizes):
-            for block in range(num_blocks):
-                x = getattr(self, f"stage{stage + 2}_block{block}")(x)
+            x = getattr(self, f"stage{stage + 2}_block0")(x)
+            x = self._identity_run(x, stage, num_blocks - 1, block_kernel)
             outputs.append(x)
         return outputs[1], outputs[2], outputs[3]
+
+    def _identity_run(self, x: torch.Tensor, stage: int, n: int,
+                      block_kernel: bool) -> torch.Tensor:
+        """Blocks 1..n of a stage: one by one, or as one chain through the
+        fused kernel. A channels_last NCHW tensor is an NHWC buffer, so
+        neither side of the kernel copies."""
+        blocks = [getattr(self, f"stage{stage + 2}_block{i}") for i in range(1, n + 1)]
+        filters = 64 * 2 ** stage
+        b, c, h, w = x.shape
+        if not (block_kernel and blocks and c == 4 * filters
+                and supports_block((b, h, w, c), filters)):
+            for block in blocks:
+                x = block(x)
+            return x
+        y = fused_bottleneck_chain(x.permute(0, 2, 3, 1),
+                                   *self._chain_weights(stage, blocks))
+        return y.permute(0, 3, 1, 2)
+
+    def _chain_weights(self, stage: int, blocks):
+        """The run's weights stacked for the kernel (w1s (D, C, M), w2s
+        (D, 3, 3, M, M), w3s (D, M, C) in the compute dtype, folded BN in
+        f32), built once and rebuilt only when a weight is replaced or
+        changed in place (its storage or version counter moves)."""
+        tensors = [t for blk in blocks for t in (
+            blk.conv1.weight, blk.conv2.weight, blk.conv3.weight,
+            *(getattr(getattr(blk, bn), a) for bn in ("bn1", "bn2", "bn3")
+              for a in ("scale", "bias", "mean", "var")))]
+        key = (self.dtype, tuple((t.data_ptr(), t._version) for t in tensors))
+        cached = self._chain_cache.get(stage)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        with torch.no_grad():
+            folded = [(blk.bn1.folded(), blk.bn2.folded(), blk.bn3.folded())
+                      for blk in blocks]
+            weights = (
+                torch.stack([blk.conv1.weight[:, :, 0, 0].t() for blk in blocks]),
+                torch.stack([blk.conv2.weight.permute(2, 3, 1, 0) for blk in blocks]),
+                torch.stack([blk.conv3.weight[:, :, 0, 0].t() for blk in blocks]),
+            )
+            weights = tuple(t.to(self.dtype).contiguous() for t in weights) + tuple(
+                torch.stack([f[i][j] for f in folded]).contiguous()
+                for i in range(3) for j in range(2))
+        self._chain_cache[stage] = (key, weights)
+        return weights

@@ -12,7 +12,10 @@
 ``forward`` takes NHWC images (or, with ``stem_input``, the NHWC pooled stem
 activations) like the flax model and runs NCHW ``channels_last`` inside; an
 NHWC-contiguous tensor permuted to NCHW is exactly that, with no copy.
-Classification is returned as logits.
+Classification is returned as logits. ``block_kernel`` routes the
+backbone's identity bottlenecks through the fused kernel (inference only,
+same state dict); ``forward(..., block_kernel=...)`` overrides it for one
+call.
 """
 
 from __future__ import annotations
@@ -83,7 +86,8 @@ class RetinaNet(nn.Module):
     def __init__(self, num_classes: int, backbone: str = "resnet50",
                  num_anchors: int = 9, feature_size: int = 256,
                  dtype: torch.dtype = torch.float32,
-                 output_dtype: Optional[torch.dtype] = torch.float32):
+                 output_dtype: Optional[torch.dtype] = torch.float32,
+                 block_kernel: bool = False):
         super().__init__()
         if backbone not in STAGE_SIZES:
             raise NotImplementedError(
@@ -94,16 +98,18 @@ class RetinaNet(nn.Module):
         self.num_anchors = num_anchors
         self.dtype = dtype
         self.output_dtype = output_dtype
-        self.backbone = ResNet(STAGE_SIZES[backbone], dtype=dtype)
+        self.backbone = ResNet(STAGE_SIZES[backbone], dtype=dtype,
+                               block_kernel=block_kernel)
         self.fpn = FPN(feature_size=feature_size)
         self.regression_submodel = Subnet(num_anchors * 4, feature_size)
         self.classification_submodel = Subnet(num_anchors * num_classes,
                                               feature_size)
 
-    def forward(self, images: torch.Tensor,
-                stem_input: bool = False) -> Dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor, stem_input: bool = False,
+                block_kernel: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         x = images.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
-        c3, c4, c5 = self.backbone(x, stem_input=stem_input)
+        c3, c4, c5 = self.backbone(x, stem_input=stem_input,
+                                   block_kernel=block_kernel)
         features = self.fpn(c3, c4, c5)
         b = images.shape[0]
         flat = lambda t, n: t.permute(0, 2, 3, 1).reshape(b, -1, n)

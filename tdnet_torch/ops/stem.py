@@ -24,12 +24,11 @@ dtype and contracts it with the rounded input in f32. The CUDA kernel is in
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 
 from tdnet_torch import _build
+from tdnet_torch.device import no_tf32
 from tdnet_torch.models.layers import same_pads
 from tdnet_torch.models.resnet import max_pool_same
 from tdnet_torch.ops.ingest import mode_constants
@@ -42,17 +41,6 @@ BWD_LAUNCHES = _build.LaunchCounter("stem_bwd")
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_BLOCKS = 264   # the backward's persistent grid: 2 blocks on each of 132 SMs
 _NW = 7 * 7 * 3 * 64
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """Full-f32 cuDNN convolutions for the plain versions."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def supports_shape(shape) -> bool:
@@ -96,7 +84,7 @@ def fused_stem_plain(packed: torch.Tensor, kernel7: torch.Tensor,
     device the conv runs in full f32 (TF32 off for the call)."""
     _check(packed, kernel7, bn_inv, bn_off, normalize, out_dtype)
     x, wt = _plain_operands(packed, kernel7, normalize, out_dtype)
-    with _no_tf32():
+    with no_tf32():
         y = F.conv2d(x, wt, stride=2)
     y = y * bn_inv[None, :, None, None] + bn_off[None, :, None, None]
     y = max_pool_same(torch.relu(y).to(out_dtype).to(torch.float32))
@@ -172,7 +160,7 @@ def fused_stem_bwd_plain(packed: torch.Tensor, kernel7: torch.Tensor,
     _check_bwd(packed, kernel7, bn_inv, bn_off, dy, normalize, out_dtype)
     cd = out_dtype
     x, wt = _plain_operands(packed, kernel7, normalize, cd)
-    with _no_tf32():
+    with no_tf32():
         z = F.conv2d(x, wt, stride=2)                      # (B, 64, H/2, W/2)
     inv = bn_inv[None, :, None, None]
     wp = z * inv + bn_off[None, :, None, None]
@@ -202,7 +190,7 @@ def fused_stem_bwd_plain(packed: torch.Tensor, kernel7: torch.Tensor,
     doff = dwp.sum(dim=(0, 2, 3))
     dinv = (dwp * z).sum(dim=(0, 2, 3))
     dz = (dwp * inv).to(cd).to(torch.float32)
-    with _no_tf32():
+    with no_tf32():
         dk = torch.nn.grad.conv2d_weight(x, tuple(wt.shape), dz, stride=2)
     return dk.permute(2, 3, 1, 0).contiguous(), dinv, doff
 

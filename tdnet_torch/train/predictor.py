@@ -13,11 +13,15 @@ of two routes:
   normalize kernel -> the model.
 
 Without it, the host normalizes to float32. On CUDA a kernel failure
-raises: there is no fallback route.
+raises: there is no fallback route. ``TDNET_BLOCK_KERNEL=1`` turns on the
+fused identity-bottleneck kernel of a ResNet backbone on CUDA for the
+Predictor's calls (as ``RetinaNet(block_kernel=True)`` does), like the
+reference's opt-in; the caller's model keeps its own setting.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -69,6 +73,11 @@ class Predictor:
         # tail upcasts only its K candidates, exactly)
         if nms and class_specific_filter:
             model.output_dtype = None
+        # None: the model's own setting
+        self.block_kernel = (
+            True if (os.environ.get("TDNET_BLOCK_KERNEL", "0") == "1"
+                     and self.device.type == "cuda"
+                     and model.backbone_name.startswith("resnet")) else None)
         self.model = model.to(device=self.device,
                               memory_format=torch.channels_last).eval()
         self.anchor_params = anchor_params
@@ -111,14 +120,15 @@ class Predictor:
                 k7, inv, off = self._stem_params
                 act = fused_stem_packed(images, k7, inv, off, normalize=mode,
                                         out_dtype=dtype)
-                outputs = self.model(act, stem_input=True)
+                outputs = self.model(act, stem_input=True,
+                                     block_kernel=self.block_kernel)
             else:
                 if images.dtype == torch.uint8:  # 2-D rows: normalize kernel
                     b = images.numel() // (bucket[0] * bucket[1] * 3)
                     images = normalize_uint8_rows(
                         images, mode, out_dtype=dtype
                     ).reshape((b,) + tuple(bucket) + (3,))
-                outputs = self.model(images)
+                outputs = self.model(images, block_kernel=self.block_kernel)
             return detections_from_outputs(
                 outputs, bucket, anchor_params=self.anchor_params,
                 **self.det_kwargs)

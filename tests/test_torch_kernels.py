@@ -1,4 +1,4 @@
-"""The plain versions of the port's three CUDA kernels vs the Pallas
+"""The plain versions of the port's CUDA kernels vs the Pallas
 kernels they replace (interpret mode, as the JAX package's own tests run
 them on the CPU), the wrappers' input checks, and (on a machine with a GPU
 only) each CUDA kernel vs its plain version.
@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from tdnet_torch.ops.block import fused_bottleneck_chain, fused_bottleneck_chain_plain
 from tdnet_torch.ops.ingest import normalize_uint8_rows, normalize_uint8_rows_plain
 from tdnet_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+from tdnet_torch.ops.soft_nms import soft_nms_rescore_batched, soft_nms_rescore_plain
 from tdnet_torch.ops.stem import fused_stem_packed, fused_stem_plain
 
 torch.set_num_threads(1)  # tier-1 runs several xdist workers
@@ -238,3 +240,91 @@ def test_cuda_nms_equals_plain(cuda):
     valid = torch.from_numpy(rng.uniform(size=(5, 1024)) > 0.1).to(cuda)
     assert torch.equal(nms_keep(boxes, valid, 0.5),
                        nms_keep_plain(boxes, valid, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+def test_cuda_soft_nms_equals_plain(cuda, method):
+    """rtol 1e-5, atol 1e-6 (the reference's bound); the same boxes are
+    selected in every row; a row of exact duplicates stays finite."""
+    rng = np.random.RandomState(10)
+    boxes = _clustered_boxes(rng, 6, 1024, span=200.0)
+    boxes[5, 512:] = boxes[5, :512]  # exact duplicates (IoU 1)
+    scores = rng.uniform(0, 1, (6, 1024)).astype(np.float32)
+    scores[5, 512:] = scores[5, :512]
+    scores[:, -100:] = 0.0  # the below-threshold tail
+    b, s = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    kw = dict(method=method, sigma=0.5, iou_threshold=0.3, max_selections=300)
+    got = soft_nms_rescore_batched(b, s, **kw).cpu().numpy()
+    want = soft_nms_rescore_plain(b, s, **kw).cpu().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got > 0, want > 0)
+
+
+def _block_inputs(cuda, dtype, depth, h, w, c, m):
+    rng = np.random.RandomState(11)
+    f = lambda *shape, s=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(cuda)
+    u = lambda *shape: torch.from_numpy(
+        rng.uniform(0.5, 1.5, shape).astype(np.float32)).to(cuda)
+    x = f(2, h, w, c).to(dtype)
+    args = (f(depth, c, m, s=c ** -0.5), f(depth, 3, 3, m, m, s=(9 * m) ** -0.5),
+            f(depth, m, c, s=0.5 * m ** -0.5), u(depth, m), f(depth, m, s=0.1),
+            u(depth, m), f(depth, m, s=0.1), u(depth, c), f(depth, c, s=0.1))
+    return x, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,depth,h,w,c,m", [
+    (torch.float32, 2, 20, 24, 64, 8), (torch.float32, 1, 13, 16, 256, 64),
+    (torch.float32, 2, 8, 16, 512, 128), (torch.bfloat16, 1, 20, 24, 128, 32),
+    (torch.bfloat16, 1, 13, 16, 256, 64), (torch.bfloat16, 1, 8, 16, 512, 128)])
+def test_cuda_block_chain_equals_plain(cuda, dtype, depth, h, w, c, m):
+    """f32 (TF32 off, the CUDA-core body): a chain within rtol = atol =
+    3e-5. bf16 (the tensor-core body): one block, held to chip_smoke.py's
+    BLOCK_BF16_LIMITS: >= 99% of the outputs within 1 bf16 ulp (a t1 or t2
+    rounding on the other side of a bf16 boundary moves the rest of its
+    pixel), none beyond 2 ulp of max(|v|, 1), relative Frobenius <= 1e-3."""
+    x, args = _block_inputs(cuda, dtype, depth, h, w, c, m)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = fused_bottleneck_chain(x, *args).float().cpu().numpy()
+    want = fused_bottleneck_chain_plain(x, *args).float().cpu().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-5)
+        return
+    d = np.abs(got - want)
+    big = np.maximum(np.abs(got), np.abs(want))
+    within = (d <= _bf16_ulp(big)) | (d <= 1e-5)
+    assert within.mean() >= 0.99, within.mean()
+    assert (d / _bf16_ulp(np.maximum(big, 1.0))).max() <= 2.0
+    assert np.linalg.norm(got - want) <= 1e-3 * np.linalg.norm(want)
+
+
+@pytest.mark.cuda
+def test_cuda_block_bf16_needs_m_multiple_of_32(cuda):
+    """The bf16 kernel runs on the tensor cores only: M 8 raises on CUDA
+    (the plain version on the CPU takes it)."""
+    x, args = _block_inputs(cuda, torch.bfloat16, 1, 16, 16, 64, 8)
+    with pytest.raises(ValueError, match="M % 32"):
+        fused_bottleneck_chain(x, *args)
+
+
+@pytest.mark.cuda
+def test_cuda_predictor_block_opt_in(cuda, monkeypatch):
+    """TDNET_BLOCK_KERNEL=1: a CUDA Predictor's calls launch the block
+    kernel, and the caller's model keeps block_kernel off."""
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.ops import block
+    from tdnet_torch.train.predictor import Predictor
+    from tdnet_torch.weights import random_variables
+
+    monkeypatch.setenv("TDNET_BLOCK_KERNEL", "1")
+    model = RetinaNet(1)
+    pred = Predictor(model, random_variables(1, "resnet50", seed=0), device=cuda,
+                     min_side=128, max_side=128)
+    page = np.random.RandomState(0).randint(0, 256, (120, 128, 3)).astype(np.uint8)
+    block.LAUNCHES.reset()
+    pred.predict_batch([page])
+    assert block.LAUNCHES.count > 0
+    assert model.backbone.block_kernel is False
