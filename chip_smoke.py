@@ -22,7 +22,15 @@ with random weights made from a seed, RetinaNet at full width and depth
 - ResNet-101 at the 1024x1024 bucket (config 4: bf16, batch 16, every
   stage's identity run through the fused bottleneck kernel), then
   CUDA-vs-CPU f32 detections at 512x512 and the f32 model with the kernel
-  on and off.
+  on and off;
+- serving: a ResNet-50 ``.tdn`` written and read back by the port, behind
+  ``tdnet_torch.bin.serve`` (bf16, device normalize, 32 concurrent
+  ``.npy`` and PNG requests), then an f32 server against
+  ``Predictor.predict_batch``;
+- the ``predict`` and ``evaluate`` CLIs on that bundle.
+
+The fused 1x1 conv kernel (B7) is wired into no model, so only the kernel
+check runs it.
 
 The launch counters, set to 0 just before each path and read just after,
 show that it went through its kernels.
@@ -74,7 +82,22 @@ BLOCK_BATCH = 4
 # (share <= 0.995, or >= 3 ulp, and rel-Frobenius >= 1.8e-3); PERF.md.
 BLOCK_BF16_LIMITS = {"share_within_1ulp": 0.99, "max_ulps_floor1": 2.0,
                      "rel_fro": 1e-3}
+# B7: conv3 of ResNet stages 2-5 at 800x1344, (stage, H, W, K, N)
+# (tools/perf_fused_conv.py), checked at batch 4, timed at batch 16
+CONV1X1_STAGES = [(2, 200, 336, 64, 256), (3, 100, 168, 128, 512),
+                  (4, 50, 84, 256, 1024), (5, 25, 42, 512, 2048)]
+CONV1X1_BATCH, CONV1X1_TIMED_BATCH, CONV1X1_TIMED = 4, 16, (2, 4)
+# the bf16 kernel vs its plain version: least share of outputs equal, most
+# ulps of the element's chain scale (the largest magnitude among the plain
+# version's rounded intermediates y, y * inv, + off, + residual, and 1; the
+# offset and residual may cancel the output into a lower binade). The two
+# differ only where the f32 sums, run in another order, round the product y
+# to the neighbouring bf16 value: one ulp of y times inv (< 1.5 here), and
+# the three roundings after it can each add one ulp, so 4.5 ulps of the
+# chain scale bound it. The contracted-FMA control must fail the share.
+CONV1X1_BF16_LIMITS = {"share_equal": 0.999, "max_ulps_chain": 4.5}
 R101_SIDE, R101_PAGE, R101_PAGES = 1024, (1100, 1000), 16  # -> 1024x931, bucket 1024^2
+SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_MAX_DELAY_MS = 32, 16, 50.0
 R101_PARITY_SIDE = 512
 # identity blocks of ResNet-101 (3, 4, 23, 3 blocks a stage), one launch each
 R101_BLOCK_LAUNCHES = 2 + 3 + 22 + 2
@@ -292,6 +315,7 @@ def phase_kernels(dev):
     results["stem_bwd"] = check_stem_bwd(dev, rng, k7, inv, off)
     results["soft_nms"] = check_soft_nms(dev, rng)
     results["block"] = check_block(dev, rng)
+    results["conv1x1"] = check_conv1x1(dev, rng)
     emit({"phase": "kernels", "ok": True, "results": results})
     return results
 
@@ -556,6 +580,159 @@ def check_block(dev, rng):
     return {"max_abs_err": worst, **timed, "checks": checks,
             "bf16_limits": BLOCK_BF16_LIMITS,
             "library": "the port's unfused path: 3 Bottleneck modules, cuDNN bf16 convs"}
+
+
+def _conv1x1_inputs(rng, dev, batch, h, w, k, n):
+    """conv3 of a bottleneck: x (B, H, W, K) and a residual (B, H, W, N)
+    at 0.5 std, the (K, N) weight at 0.05 std, a BN pair
+    (tools/perf_fused_conv.py's scales)."""
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    return (t(rng.standard_normal((batch, h, w, k)) * 0.5),
+            t(rng.standard_normal((k, n)) * 0.05), t(rng.uniform(0.5, 1.5, n)),
+            t(rng.standard_normal(n) * 0.1),
+            t(rng.standard_normal((batch, h, w, n)) * 0.5))
+
+
+def _conv1x1_product(x, w):
+    """The plain version's product y = bf16(x . w) as (M, N) (TF32 off)."""
+    from tdnet_torch.device import no_tf32
+
+    with no_tf32():
+        return (x.reshape(-1, w.shape[0]).float() @ w.to(x.dtype).float()).to(x.dtype)
+
+
+def _conv1x1_contracted(y, inv, off, res):
+    """The control: the plain version's epilogue with y * inv + off
+    contracted into one f32 FMA and rounded once (y * inv of two bf16
+    values is exact in f32, so the f32 multiply-add is the FMA)."""
+    import torch
+
+    cd = y.dtype
+    t = (y.float() * inv.to(cd).float() + off.to(cd).float()).to(cd)
+    if res is not None:
+        t = t + res.reshape(t.shape).to(cd)
+    return torch.relu(t)
+
+
+def conv1x1_chain_scale(y, inv, off, res):
+    """The largest magnitude among the plain version's rounded
+    intermediates of each output: y, y * inv, + off and + residual (each
+    rounded to bf16)."""
+    import torch
+
+    cd = y.dtype
+    steps = [y, y * inv.to(cd)]
+    steps.append(steps[-1] + off.to(cd))
+    if res is not None:
+        steps.append(steps[-1] + res.reshape(y.shape).to(cd))
+    return torch.stack([t.float().abs() for t in steps]).amax(dim=0)
+
+
+def conv1x1_readings(got, want, scale):
+    """Share of outputs equal to the reference, the largest error in ulps
+    of max(|v|, 1) and of the chain scale max(|v|, scale, 1), relative
+    Frobenius error."""
+    import torch
+
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(1.0)
+    return {"share_equal": (d == 0).float().mean().item(),
+            "max_ulps_floor1": (d / bf16_ulp(big)).max().item(),
+            "max_ulps_chain": (d / bf16_ulp(torch.maximum(big, scale))).max().item(),
+            "rel_fro": rel_fro(got, want), "max_abs_err": d.max().item()}
+
+
+def conv1x1_ok(r) -> bool:
+    return (r["share_equal"] >= CONV1X1_BF16_LIMITS["share_equal"]
+            and r["max_ulps_chain"] <= CONV1X1_BF16_LIMITS["max_ulps_chain"])
+
+
+def check_conv1x1(dev, rng):
+    """The fused 1x1 conv kernel (B7) vs its plain version at the conv3
+    shapes of ResNet stages 2-5 at 800x1344 (tools/perf_fused_conv.py), batch
+    4, ReLU on, with and without the residual.
+
+    bf16 (tensor cores): CONV1X1_BF16_LIMITS (>= 99.9% of outputs equal,
+    <= 4.5 ulps of the chain scale); the control, the same epilogue
+    contracted to one f32 FMA and rounded once, must fail them. f32 (CUDA cores, TF32
+    off): relative Frobenius error <= 1e-5.
+
+    Timed at batch 16 with the residual, stages 2 and 4: the kernel, the
+    plain version, and the port's unfused tail on the same input as the
+    library yardstick (torch.matmul in bf16, then PyTorch's elementwise
+    ops)."""
+    import torch
+
+    from tdnet_torch.ops import conv1x1
+
+    checks, worst = [], 0.0
+    for stage, h, w, k, n in CONV1X1_STAGES:
+        x32, wt, inv, off, res32 = _conv1x1_inputs(rng, dev, CONV1X1_BATCH, h, w, k, n)
+        info = {"stage": stage, "shape": [CONV1X1_BATCH, h, w, k], "n": n}
+        for with_res in (True, False):
+            tag = f"conv1x1 stage {stage} {'res' if with_res else 'nores'}"
+            r32 = res32 if with_res else None
+            got = conv1x1.fused_conv1x1(x32, wt, inv, off, residual=r32)
+            want = conv1x1.fused_conv1x1_plain(x32, wt, inv, off, residual=r32)
+            require(torch.isfinite(got).all().item(), f"{tag} f32: non-finite")
+            f32 = rel_fro(got, want)
+            worst = max(worst, (got - want).abs().max().item())
+            require(f32 <= 1e-5, f"{tag} f32: rel Frobenius {f32}")
+            x, r16 = x32.to(torch.bfloat16), None if r32 is None else r32.to(torch.bfloat16)
+            got = conv1x1.fused_conv1x1(x, wt, inv, off, residual=r16)
+            want = conv1x1.fused_conv1x1_plain(x, wt, inv, off, residual=r16)
+            require(torch.isfinite(got).all().item(), f"{tag} bf16: non-finite")
+            y = _conv1x1_product(x, wt)
+            scale = conv1x1_chain_scale(y, inv, off, r16).reshape(got.shape)
+            sound = conv1x1_readings(got, want, scale)
+            control = conv1x1_readings(
+                _conv1x1_contracted(y, inv, off, r16).reshape(got.shape), want, scale)
+            worst = max(worst, sound["max_abs_err"])
+            info["res" if with_res else "nores"] = {
+                "f32_rel_fro": f32, "bf16": sound, "control_contracted_fma": control}
+            require(conv1x1_ok(sound), f"{tag} bf16: {sound} beyond {CONV1X1_BF16_LIMITS}")
+            require(not conv1x1_ok(control),
+                    f"{tag} bf16: the contracted-FMA control passes the limits: {control}")
+            del got, want, x, r16, y, scale
+        checks.append(info)
+        del x32, wt, inv, off, res32
+
+    timed = []
+    for stage, h, w, k, n in CONV1X1_STAGES:
+        if stage not in CONV1X1_TIMED:
+            continue
+        x32, wt, inv, off, res32 = _conv1x1_inputs(rng, dev, CONV1X1_TIMED_BATCH, h, w, k, n)
+        x, res = x32.to(torch.bfloat16), res32.to(torch.bfloat16)
+        del x32, res32
+        w16, inv16, off16 = wt.to(torch.bfloat16), inv.to(torch.bfloat16), off.to(torch.bfloat16)
+
+        def unfused():
+            y = (x.reshape(-1, k) @ w16).reshape(res.shape)
+            return torch.relu(y * inv16 + off16 + res)
+
+        m = x.numel() // k
+        timed.append({
+            "stage": stage, "shape": [CONV1X1_TIMED_BATCH, h, w, k], "n": n,
+            "ms": median_ms(lambda: conv1x1.fused_conv1x1(x, wt, inv, off, residual=res)),
+            "plain_ms": median_ms(lambda: conv1x1.fused_conv1x1_plain(
+                x, wt, inv, off, residual=res), iters=5),
+            "library_ms": median_ms(unfused),
+            # bf16 x, weight, residual in and out; f32 BN pair; the product
+            # on the bf16 tensor cores
+            "bound": bound(2 * (m * k + k * n + 2 * m * n) + 8 * n, 2 * m * k * n, "bf16")})
+        del x, res, wt, w16
+    first = timed[0]
+    return {"max_abs_err": worst, "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "library_ms": first["library_ms"], "bound": first["bound"],
+            "timed": timed, "checks": checks, "bf16_limits": CONV1X1_BF16_LIMITS,
+            "library": "the unfused tail: torch.matmul bf16, then * inv + off + "
+                       "residual and ReLU as PyTorch elementwise ops"}
 
 
 def nms_pairs(keep) -> int:
@@ -1116,11 +1293,11 @@ def _timed_predict(pred, pages, counters, dev):
 
 
 def _all_counters():
-    from tdnet_torch.ops import block, ingest, nms_kernel, soft_nms, stem
+    from tdnet_torch.ops import block, conv1x1, ingest, nms_kernel, soft_nms, stem
 
     return {"ingest": ingest.LAUNCHES, "stem": stem.LAUNCHES,
             "nms": nms_kernel.LAUNCHES, "soft_nms": soft_nms.LAUNCHES,
-            "block": block.LAUNCHES}
+            "block": block.LAUNCHES, "conv1x1": conv1x1.LAUNCHES}
 
 
 def phase_predict_soft(dev):
@@ -1268,6 +1445,295 @@ def phase_predict_r101(dev):
     return launches
 
 
+def _served_match(resp_dets, want, threshold):
+    """A server's (or the predict CLI's) JSON detections against a
+    Predictor's (boxes, scores, labels) above the same threshold: the same
+    count, and each detection matched by label, score (rtol 1e-4, plus the
+    5e-5 of its 4-decimal rounding) and box (0.5 px, plus 0.005 of its
+    2-decimal rounding)."""
+    import numpy as np
+
+    wb, ws, wl = want
+    keep = ws > threshold
+    require(len(resp_dets) == int(keep.sum()),
+            f"{len(resp_dets)} vs {int(keep.sum())} detections")
+    worst = 0.0
+    for d in resp_dets:
+        cand = (wl[keep] == d["label"]) & (
+            np.abs(ws[keep] - d["score"]) <= 1e-4 * d["score"] + 5e-5)
+        require(cand.any(), f"no score match for {d}")
+        dist = float(np.abs(wb[keep][cand] - np.asarray(d["box"])).max(axis=1).min())
+        worst = max(worst, dist)
+        require(dist <= 0.505, f"box off by {dist} px")
+    return worst
+
+
+def _post(base, body: bytes, ctype: str, path="/v1/detect"):
+    """(status, JSON answer, seconds) of one POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype})
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read()), time.monotonic() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, {"error": e.read().decode(errors="replace")}, time.monotonic() - t0
+
+
+def _bodies(pages_u8):
+    """Each uint8 BGR page as an .npy body and as a PNG body."""
+    import numpy as np
+
+    from tdnet_torch.data import png
+
+    out = []
+    for page in pages_u8:
+        buf = io.BytesIO()
+        np.save(buf, page)
+        out.append(((buf.getvalue(), "application/x-npy"),
+                    (png.encode_png(np.ascontiguousarray(page[:, :, ::-1])), "image/png")))
+    return out
+
+
+def _serve(predictor, **kw):
+    import threading
+
+    from tdnet_torch.bin.serve import build_server
+
+    httpd, batcher = build_server(predictor, port=0, **kw)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return f"http://127.0.0.1:{httpd.server_address[1]}", httpd, batcher
+
+
+def _stop(httpd, batcher):
+    httpd.shutdown()
+    httpd.server_close()
+    batcher.close()
+
+
+def phase_serve(dev):
+    """The serving path: a ResNet-50 RetinaNet (1 class, the predict
+    phase's weights) written as a .tdn by the port's save_model and read
+    back by load_model, behind tdnet_torch.bin.serve's HTTP server in bf16
+    with device normalize (uint8 through the fused stem, the NMS kernel in
+    the tail), max_batch 16, max_delay 50 ms. 32 concurrent requests: the
+    predict phase's 16 pages twice, half as .npy and half as PNG bodies;
+    counters set to 0 just before them and read just after. Then an f32
+    server on 4 pages against Predictor.predict_batch on the same pages,
+    the threshold in the widest gap of a probe run (phase_parity's rule)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tdnet_torch.models.io import load_model, save_model
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.train.predictor import Predictor
+
+    out_dir = ROOT / "build" / "chip_smoke" / "serve"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    bundle = str(out_dir / "model.tdn")
+    t0 = time.monotonic()
+    save_model(bundle, RetinaNet(1), smoke_variables(),
+               inference_config={"min_side": MIN_SIDE, "max_side": MAX_SIDE})
+    model, variables, meta = load_model(bundle, dtype=torch.bfloat16)
+    bundle_s = time.monotonic() - t0
+    inference = meta["inference"]
+    sides = dict(min_side=inference["min_side"], max_side=inference["max_side"])
+    pred = Predictor(model, variables, device=dev, device_preprocess=True, **sides)
+    require(pred.fused_stem and pred.batch_size == 16,
+            f"fused_stem {pred.fused_stem}, batch_size {pred.batch_size}")
+    pages = [p.astype(np.uint8) for p in synthetic_pages(N_LANDSCAPE, N_PORTRAIT, SEED)]
+    bodies = _bodies(pages)
+    base, httpd, batcher = _serve(pred, max_batch=SERVE_MAX_BATCH,
+                                  max_delay_ms=SERVE_MAX_DELAY_MS)
+    try:
+        # warm-up: each bucket at the batch sizes the timed run gives
+        warm = [None] * len(pages)
+        threads = [threading.Thread(target=lambda i=i: warm.__setitem__(
+            i, _post(base, *bodies[i][0]))) for i in range(len(pages))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        require(all(w[0] == 200 for w in warm), f"warm-up answers {[w[0] for w in warm]}")
+
+        requests = [bodies[i % len(pages)][(i // len(pages)) % 2]
+                    for i in range(SERVE_REQUESTS)]
+        answers = [None] * len(requests)
+        counters = _all_counters()
+        for c in counters.values():
+            c.reset()
+        before = batcher.stats()
+        pred.host_prep_s = pred.dispatch_s = 0.0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        sync(dev)
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(
+            i, _post(base, *requests[i]))) for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        elapsed = time.monotonic() - t0
+        launches = {k: c.count for k, c in counters.items()}
+        stats = batcher.stats()
+    finally:
+        _stop(httpd, batcher)
+    codes = [a[0] for a in answers]
+    require(all(c == 200 for c in codes), f"answers {codes}")
+    batches = stats["batches"] - before["batches"]
+    require(batches < len(requests), f"{batches} batches for {len(requests)} requests")
+    require(stats["fused_stem"] is True and stats["fused_stem_fallback"] is None,
+            f"/stats fused_stem {stats['fused_stem']}")
+    require(launches["stem"] >= 1 and launches["nms"] >= 1, f"serve launches {launches}")
+    from tdnet_torch.data import png
+
+    require(all(np.array_equal(png.decode_png(b[1][0])[:, :, ::-1], p)
+                for b, p in zip(bodies, pages)), "a PNG body decodes to other pixels")
+    n_det = sum(len(a[1]["detections"]) for a in answers)
+    require(n_det > 0, "no detections served")
+    lat = np.sort([a[2] for a in answers]) * 1e3
+    q = lambda f: float(lat[min(len(lat) - 1, int(f * len(lat)))])
+    parity = _serve_parity(dev, bundle, sides)
+    emit({"phase": "serve", "ok": True, "model": "resnet50 retinanet, 1 class (.tdn)",
+          "dtype": "bfloat16", "bundle_mb": os.path.getsize(bundle) / 2 ** 20,
+          "bundle_write_read_s": bundle_s, "requests": len(requests),
+          "bodies": {"npy": len(requests) // 2, "png": len(requests) // 2},
+          "max_batch": SERVE_MAX_BATCH, "max_delay_ms": SERVE_MAX_DELAY_MS,
+          "seconds": elapsed, "requests_per_s": len(requests) / elapsed,
+          "latency_ms": {"p50": q(0.5), "p90": q(0.9), "p99": q(0.99)},
+          "batches": batches,
+          "mean_batch_size": (stats["images"] - before["images"]) / batches,
+          "host_prep_s": pred.host_prep_s, "dispatch_s": pred.dispatch_s,
+          "detections": n_det, "launches": launches,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                          if dev.type == "cuda" else None),
+          "server_stats": stats, "parity_f32": parity})
+    return launches
+
+
+def _serve_parity(dev, bundle, sides):
+    """An f32 server's answers to 4 pages vs Predictor.predict_batch on the
+    same pages (both device-normalize, TF32 off)."""
+    import threading
+
+    import numpy as np
+
+    from tdnet_torch.models.io import load_model
+    from tdnet_torch.train.predictor import Predictor
+
+    def predictor(thr):
+        model, variables, _ = load_model(bundle)
+        return Predictor(model, variables, device=dev, device_preprocess=True,
+                         score_threshold=thr, **sides)
+
+    pages = [p.astype(np.uint8) for p in synthetic_pages(4, 0, SEED + 6)]
+    thr, gap = _gap_threshold(predictor(0.05).predict_batch(pages))
+    direct = predictor(thr).predict_batch(pages)
+    base, httpd, batcher = _serve(predictor(thr), max_batch=4, max_delay_ms=SERVE_MAX_DELAY_MS,
+                                  default_threshold=thr)
+    answers = [None] * len(pages)
+    try:
+        bodies = _bodies(pages)
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(
+            i, _post(base, *bodies[i][i % 2]))) for i in range(len(pages))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        _stop(httpd, batcher)
+    require(all(a[0] == 200 for a in answers), f"answers {[a[0] for a in answers]}")
+    worst = max(_served_match(a[1]["detections"], d, thr) for a, d in zip(answers, direct))
+    n = sum(len(a[1]["detections"]) for a in answers)
+    require(n > 0, "serve parity compared no detections")
+    return {"pages": len(pages), "score_threshold": thr, "threshold_gap": gap,
+            "detections_compared": n, "max_box_diff_px": worst}
+
+
+def phase_cli(dev):
+    """The predict and evaluate CLIs on the card, from the serve phase's
+    .tdn: predict on 4 PNG pages (f32, host normalize) writes one JSONL
+    line a page, each page's detections those of a direct f32 Predictor
+    above a threshold in the widest gap of a probe run; evaluate on a CSV
+    dataset of 8 synthetic table pages (their ruled tables as the GT) exits
+    0 and prints the mAP lines (random weights: no mAP target). Counters
+    set to 0 just before the CLIs and read just after."""
+    import numpy as np
+
+    from tdnet_torch.bin import evaluate, predict
+    from tdnet_torch.data.image import read_image_bgr, write_image_bgr
+    from tdnet_torch.models.io import load_model
+    from tdnet_torch.train.predictor import Predictor
+
+    work = ROOT / "build" / "chip_smoke" / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    bundle = str(ROOT / "build" / "chip_smoke" / "serve" / "model.tdn")
+    paths = []
+    for i, page in enumerate(synthetic_pages(3, 1, SEED + 7)):
+        paths.append(str(work / f"page{i}.png"))
+        write_image_bgr(paths[-1], page.astype(np.uint8))
+    pages = [read_image_bgr(p) for p in paths]
+    model, variables, meta = load_model(bundle)
+    sides = dict(min_side=meta["inference"]["min_side"], max_side=meta["inference"]["max_side"])
+    probe = Predictor(model, variables, device=dev, score_threshold=0.05, **sides)
+    thr, gap = _gap_threshold([probe(p) for p in pages])
+    direct = Predictor(model, variables, device=dev, score_threshold=0.05, **sides)
+
+    ds_pages, ds_boxes = synthetic_pages(6, 2, SEED + 8, with_boxes=True)
+    rows = []
+    for i, (page, boxes) in enumerate(zip(ds_pages, ds_boxes)):
+        write_image_bgr(work / f"gt{i}.png", page.astype(np.uint8))
+        rows += [f"gt{i}.png,{int(b[0])},{int(b[1])},{int(b[2])},{int(b[3])},table"
+                 for b in boxes]
+    (work / "annotations.csv").write_text("\n".join(rows) + "\n")
+    (work / "classes.csv").write_text("table,0\n")
+
+    counters = _all_counters()
+    for c in counters.values():
+        c.reset()
+    log = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(log):
+        rc_predict = predict.main([bundle, *paths, "--output-dir", str(work / "out"),
+                                   "--score-threshold", repr(thr), "--device", dev.type])
+        t_predict = time.monotonic() - t0
+        rc_eval = evaluate.main(["--image-min-side", str(MIN_SIDE), "--image-max-side",
+                                 str(MAX_SIDE), "--device", dev.type, "csv", str(work / "annotations.csv"),
+                                 str(work / "classes.csv"), bundle])
+    t_eval = time.monotonic() - t0 - t_predict
+    launches = {k: c.count for k, c in counters.items()}
+    out = log.getvalue().splitlines()
+    require(rc_predict == 0 and rc_eval == 0, f"exit codes {rc_predict}, {rc_eval}: {out}")
+    lines = [json.loads(x) for x in (work / "out" / "detections.jsonl").read_text().splitlines()]
+    require([x["image"] for x in lines] == paths, "one JSONL line a page, in order")
+    worst, n = 0.0, 0
+    for line, page in zip(lines, pages):
+        worst = max(worst, _served_match(line["detections"], direct(page), thr))
+        n += len(line["detections"])
+        require((work / "out" / f"det_{Path(line['image']).stem}.png").is_file(),
+                "annotated copy missing")
+    require(n > 0, "predict CLI compared no detections")
+    maps = [x for x in out if x.startswith("mAP")]
+    require(len(maps) == 2 and any("instances of class table" in x for x in out),
+            f"evaluate printed {out[-4:]}")
+    require(launches["nms"] >= 1, f"cli launches {launches}")
+    emit({"phase": "cli", "ok": True, "predict": {
+              "pages": len(paths), "score_threshold": thr, "threshold_gap": gap,
+              "detections_compared": n, "max_box_diff_px": worst, "seconds": t_predict},
+          "evaluate": {"pages": len(ds_pages), "gt_boxes": len(rows), "seconds": t_eval,
+                       "printed": [x for x in out if "average precision" in x] + maps},
+          "launches": launches})
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "tdnet_torch" / "__init__.py").is_file():
         print("chip_smoke: tdnet_torch/ is missing next to this script",
@@ -1298,6 +1764,10 @@ def main() -> int:
         soft_launches = phase_predict_soft(dev)
         phase = "predict_r101"
         r101_launches = phase_predict_r101(dev)
+        phase = "serve"
+        serve_launches = phase_serve(dev)
+        phase = "cli"
+        cli_launches = phase_cli(dev)
     except Exception as exc:  # report the failed phase, print no result
         import traceback
 
@@ -1306,8 +1776,10 @@ def main() -> int:
         return 1
 
     # launches: the main paths' runs (predict's two routes, training,
-    # config 5, config 4)
-    runs = (launches, train_launches, soft_launches, r101_launches)
+    # config 5, config 4, serving, the CLIs); conv1x1 (B7) is wired into no
+    # model, in the JAX package too, so no path launches it
+    runs = (launches, train_launches, soft_launches, r101_launches,
+            serve_launches, cli_launches)
     sources = {
         "ingest": ("tdnet_torch/csrc/ingest.cu", "tdnet/ops/pallas_ingest.py:137"),
         "stem": ("tdnet_torch/csrc/stem.cu", "tdnet/ops/pallas_stem.py:676"),
@@ -1315,19 +1787,23 @@ def main() -> int:
         "stem_bwd": ("tdnet_torch/csrc/stem_bwd.cu", "tdnet/ops/pallas_stem.py:492"),
         "soft_nms": ("tdnet_torch/csrc/soft_nms.cu", "tdnet/ops/soft_nms.py:211"),
         "block": ("tdnet_torch/csrc/block.cu", "tdnet/ops/pallas_block.py:262"),
+        "conv1x1": ("tdnet_torch/csrc/conv1x1.cu", "tdnet/ops/pallas_conv.py:108"),
     }
     # library_ms: no single PyTorch call computes the first five functions
     # (normalize + round; normalize + conv + BN + ReLU + pool; greedy NMS;
     # the stem's pool-routed filter and BN gradients; soft-NMS rescoring);
     # for block it is the port's unfused path on the same input (cuDNN
-    # bf16 convolutions and PyTorch's elementwise kernels, 3 blocks)
+    # bf16 convolutions and PyTorch's elementwise kernels, 3 blocks), for
+    # conv1x1 the unfused tail (torch.matmul bf16, then elementwise ops)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(name, 0) for r in runs),
          "max_abs_err": kres[name]["max_abs_err"],
          "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"],
          "bound_ms": kres[name]["bound"][0], "bound_by": kres[name]["bound"][1],
-         "library_ms": kres[name].get("library_ms")}
+         "library_ms": kres[name].get("library_ms"),
+         **({"note": "no path runs it: wired into no model, in the JAX package too"}
+            if name == "conv1x1" else {})}
         for name, (src, rep) in sources.items()]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

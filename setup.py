@@ -51,6 +51,10 @@ setup(
             "tdnet-export-keras=tdnet.bin.export_keras:main",
             "tdnet-csv-from-xml=tdnet.bin.csv_from_xml:main",
             "tdnet-serve=tdnet.bin.serve:main",
+            # the PyTorch + CUDA port
+            "tdnet-torch-serve=tdnet_torch.bin.serve:main",
+            "tdnet-torch-predict=tdnet_torch.bin.predict:main",
+            "tdnet-torch-evaluate=tdnet_torch.bin.evaluate:main",
             # reference-compatible aliases (keras-retinanet console scripts)
             "retinanet-train=tdnet.bin.train:main",
             "retinanet-evaluate=tdnet.bin.evaluate:main",

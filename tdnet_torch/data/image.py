@@ -1,5 +1,9 @@
-"""Host-side image preprocessing in numpy, the counterpart of
+"""Host-side image reading and preprocessing in numpy, the counterpart of
 ``tdnet/data/image.py``.
+
+:func:`read_image_bgr` decodes PNG with ``data/png.py`` (zlib and numpy;
+the reference decodes with PIL) and reads ``.npy`` arrays; other formats,
+JPEG among them, raise.
 
 The GPU machine has neither cv2 nor PIL, so :func:`resize_image` is a numpy
 bilinear resize that mirrors cv2's ``INTER_LINEAR`` (the reference's
@@ -10,12 +14,18 @@ bilinear resize that mirrors cv2's ``INTER_LINEAR`` (the reference's
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 
+from tdnet_torch.data import png
+
 __all__ = [
     "CAFFE_MEAN_BGR",
+    "read_image_bgr",
+    "write_image_bgr",
+    "image_size",
     "preprocess_image",
     "compute_resize_scale",
     "resize_image",
@@ -23,6 +33,40 @@ __all__ = [
 
 # caffe-mode BGR means (reference utils/image.py preprocess_image)
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], dtype=np.float32)
+
+
+def read_image_bgr(path) -> np.ndarray:
+    """An image file -> (H, W, 3) float32 BGR: PNG (decoded as PIL's
+    ``convert("RGB")``, then the channels flipped) or a ``.npy`` array that
+    is already (H, W, 3) BGR."""
+    path = os.fspath(path)
+    if path.endswith(".npy"):
+        image = np.load(path, allow_pickle=False)
+        if image.ndim != 3 or image.shape[2] != 3:
+            raise ValueError(f"{path}: a .npy image must be (H, W, 3) BGR, "
+                             f"got {image.shape}")
+        return np.asarray(image, np.float32)
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(png.SIGNATURE):
+        raise ValueError(f"{path}: unsupported image format; the port reads {png.READS}")
+    return png.decode_png(data)[:, :, ::-1].astype(np.float32)
+
+
+def write_image_bgr(path, image_bgr: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 BGR image as PNG."""
+    with open(path, "wb") as f:
+        f.write(png.encode_png(np.ascontiguousarray(image_bgr[:, :, ::-1])))
+
+
+def image_size(path):
+    """(width, height) of a PNG (from its header) or a ``.npy`` image."""
+    path = os.fspath(path)
+    if path.endswith(".npy"):
+        h, w = np.load(path, mmap_mode="r", allow_pickle=False).shape[:2]
+        return w, h
+    with open(path, "rb") as f:
+        return png.png_size(f.read(24))
 
 
 def preprocess_image(x: np.ndarray, mode: str = "caffe") -> np.ndarray:

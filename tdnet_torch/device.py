@@ -23,11 +23,14 @@ def resolve_device(device=None) -> torch.device:
 
 @contextlib.contextmanager
 def no_tf32():
-    """Full-f32 cuDNN convolutions inside the block (cuDNN defaults to TF32
-    for f32 convolutions)."""
-    prev = torch.backends.cudnn.allow_tf32
+    """Full-f32 cuDNN convolutions and matrix products inside the block
+    (cuDNN defaults to TF32 for f32 convolutions)."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev

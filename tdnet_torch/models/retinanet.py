@@ -85,6 +85,7 @@ class RetinaNet(nn.Module):
 
     def __init__(self, num_classes: int, backbone: str = "resnet50",
                  num_anchors: int = 9, feature_size: int = 256,
+                 prior_probability: float = 0.01,
                  dtype: torch.dtype = torch.float32,
                  output_dtype: Optional[torch.dtype] = torch.float32,
                  block_kernel: bool = False):
@@ -96,6 +97,10 @@ class RetinaNet(nn.Module):
         self.num_classes = num_classes
         self.backbone_name = backbone
         self.num_anchors = num_anchors
+        self.feature_size = feature_size
+        # the class head's initial bias (random_variables); kept for the
+        # .tdn bundle's model record
+        self.prior_probability = prior_probability
         self.dtype = dtype
         self.output_dtype = output_dtype
         self.backbone = ResNet(STAGE_SIZES[backbone], dtype=dtype,

@@ -13,10 +13,17 @@ of two routes:
   normalize kernel -> the model.
 
 Without it, the host normalizes to float32. On CUDA a kernel failure
-raises: there is no fallback route. ``TDNET_BLOCK_KERNEL=1`` turns on the
-fused identity-bottleneck kernel of a ResNet backbone on CUDA for the
-Predictor's calls (as ``RetinaNet(block_kernel=True)`` does), like the
-reference's opt-in; the caller's model keeps its own setting.
+raises: there is no fallback route, so ``fused_stem_fallback`` (the
+reference's record of a switch to the flat route, which ``serve``'s
+``/stats`` reports) is always None, and ``use_pallas=False`` (the
+reference's plain-XLA route) raises on CUDA, where the port has no plain
+route; on the CPU the plain versions run anyway. ``batch_size`` is the
+chunk ``utils/eval.py`` hands to ``predict_batch`` (16 on CUDA, the
+counterpart of the reference's TPU default, else 1).
+``TDNET_BLOCK_KERNEL=1`` turns on the fused identity-bottleneck kernel of
+a ResNet backbone on CUDA for the Predictor's calls (as
+``RetinaNet(block_kernel=True)`` does), like the reference's opt-in; the
+caller's model keeps its own setting.
 """
 
 from __future__ import annotations
@@ -65,8 +72,19 @@ class Predictor:
         device_preprocess: bool = False,
         fused_stem: Optional[bool] = None,
         device=None,
+        batch_size: Optional[int] = None,
+        use_pallas: Optional[bool] = None,
     ):
+        if use_pallas is False and torch.device(device or "cuda").type == "cuda":
+            raise ValueError("use_pallas=False asks for the plain route, which "
+                             "the port does not run on CUDA: its kernels are "
+                             "the only CUDA route")
         self.device = resolve_device(device)
+        self.use_pallas = use_pallas
+        if batch_size is None:
+            batch_size = 16 if self.device.type == "cuda" else 1
+        self.batch_size = batch_size
+        self.fused_stem_fallback = None
         if variables is not None:
             model.load_state_dict(torch_state_from_variables(variables))
         # deferred tail: keep the heads' dtype at the model boundary (the
@@ -156,6 +174,11 @@ class Predictor:
             canvas = np.zeros((bucket[0], bucket[1], 3), dtype=np.float32)
             canvas[:h, :w, :] = x
         return canvas, scale, bucket
+
+    def __call__(self, image_bgr: np.ndarray):
+        """One raw BGR image -> (boxes, scores, labels) in its coordinates,
+        -1-padded."""
+        return self.predict_batch([image_bgr])[0]
 
     def predict_batch(self, images_bgr):
         """A list of raw BGR images, one device dispatch per shape bucket ->

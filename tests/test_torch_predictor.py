@@ -160,3 +160,69 @@ def test_fused_stem_defaults_off_on_cpu_and_cuda_requires_gpu(variables):
         pytest.skip("a GPU is present: device='cuda' is valid here")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         Predictor(RetinaNet(1), device="cuda")
+
+
+
+def test_call_is_predict_batch_of_one(variables):
+    """__call__ is predict_batch of one image, as in the reference
+    (tdnet/train/predictor.py:234-237; tdnet/bin/predict.py calls it)."""
+    page = _pages(1, seed=5)[0]
+    pred = Predictor(RetinaNet(1), variables, device="cpu", **KW)
+    for got, want in zip(pred(page), pred.predict_batch([page])[0]):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_batch_size_defaults_and_eval_chunks(variables):
+    """batch_size defaults to 1 on the CPU (16 on CUDA, the counterpart of
+    the reference's TPU default) and is the chunk utils/eval.py hands to
+    predict_batch."""
+    from tdnet_torch.utils.eval import _get_detections
+
+    assert Predictor(RetinaNet(1), variables, device="cpu", **KW).batch_size == 1
+    pred = Predictor(RetinaNet(1), variables, device="cpu", batch_size=3, **KW)
+    assert pred.batch_size == 3
+
+    class Pages:  # 4 pages through predict_batch in chunks of 3
+        def size(self):
+            return 4
+
+        def num_classes(self):
+            return 1
+
+        def has_label(self, label):
+            return label == 0
+
+        def load_image(self, i):
+            return _pages(4, seed=5)[i]
+
+    calls = []
+    run = pred.predict_batch
+    pred.predict_batch = lambda images: calls.append(len(images)) or run(images)
+    _get_detections(Pages(), pred, 0.05, 100)
+    assert calls == [3, 1]
+
+
+def test_use_pallas_false_raises_for_cuda_only(variables):
+    """use_pallas=False asks for the plain route: it raises for CUDA (the
+    port has no plain route there; None means CUDA) and changes nothing on
+    the CPU, where the plain versions run anyway."""
+    page = _pages(1, seed=5)[0]
+    plain = Predictor(RetinaNet(1), variables, device="cpu", use_pallas=False, **KW)
+    pred = Predictor(RetinaNet(1), variables, device="cpu", **KW)
+    assert plain.use_pallas is False and pred.use_pallas is None
+    for got, want in zip(plain(page), pred(page)):
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="use_pallas=False"):
+        Predictor(RetinaNet(1), device="cuda", use_pallas=False)
+    with pytest.raises(ValueError, match="use_pallas=False"):
+        Predictor(RetinaNet(1), use_pallas=False)
+
+
+def test_fused_stem_fallback_is_always_none(variables):
+    """The reference records a switch to the flat route in
+    fused_stem_fallback (serve's /stats reports it); the port has no
+    fallback route, so it is None on every route."""
+    for kw in (dict(), dict(device_preprocess=True, fused_stem=True)):
+        pred = Predictor(RetinaNet(1), variables, device="cpu", **kw, **KW)
+        pred.predict_batch(_pages(1, seed=5))
+        assert pred.fused_stem_fallback is None
