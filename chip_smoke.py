@@ -65,6 +65,8 @@ INGEST_ROWS = 16 * 1050               # 16 canvases of 800x1344 as 3072-byte row
 STEM_SHAPES = [(16, 800, 1344 * 3), (16, 1344, 800 * 3)]
 NMS_ROWS, NMS_K = 16, 1024
 BF16_WITHIN_ULP_MIN = 0.999           # share of bf16 stem outputs within 1 ulp
+# (the control, the plain version with the weights left in f32, must fall
+# below it; the kernels phase reports its share)
 STEM_BWD_SHAPE = (8, 800, 1344 * 3)   # the train phase's batch
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 20, 3e-4
 TRAIN_PAGE = (800, 1300)              # resize scale 1.0 -> bucket 800x1344
@@ -177,6 +179,34 @@ def bf16_ulp(t):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
+def bf16_within_ulp(got, want) -> float:
+    """Share of elements within one bf16 ulp of max(|got|, |want|), or
+    within 1e-5 (float32 tensors)."""
+    import torch
+
+    d = (got - want).abs()
+    ulp = bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    return ((d <= ulp) | (d <= 1e-5)).float().mean().item()
+
+
+def stem_unrounded_weights(packed, k7, inv, off):
+    """B1's control: the plain bf16 stem with the weights left in f32 (the
+    contract rounds them to bf16), float32 NHWC."""
+    import torch
+    import torch.nn.functional as F
+
+    from tdnet_torch.device import no_tf32
+    from tdnet_torch.models.resnet import max_pool_same
+    from tdnet_torch.ops import stem
+
+    x, _ = stem._plain_operands(packed, k7, "caffe", torch.bfloat16)
+    with no_tf32():
+        y = F.conv2d(x, k7.permute(3, 2, 0, 1), stride=2)
+    y = y * inv[None, :, None, None] + off[None, :, None, None]
+    y = max_pool_same(torch.relu(y).to(torch.bfloat16).float())
+    return y.permute(0, 2, 3, 1)
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -215,6 +245,7 @@ def phase_kernels(dev):
     import torch
 
     from tdnet_torch.ops import ingest, nms_kernel, stem
+    from tdnet_torch.ops.stem_vjp import stem_reference_packed
 
     rng = np.random.RandomState(SEED)
     results = {}
@@ -260,12 +291,17 @@ def phase_kernels(dev):
                 require(ok, f"stem f32 {shape}: beyond rtol 2e-5 atol 2e-3 "
                             f"(max {err})")
             else:
-                ulp = bf16_ulp(torch.maximum(got.abs(), want.abs()))
-                within = ((d <= ulp) | (d <= 1e-5)).float().mean().item()
+                within = bf16_within_ulp(got, want)
                 info["share_within_1ulp"] = within
                 info["share_exact"] = (d == 0).float().mean().item()
                 require(within >= BF16_WITHIN_ULP_MIN,
                         f"stem bf16 {shape}: only {within} within 1 ulp")
+                control = bf16_within_ulp(
+                    stem_unrounded_weights(packed, k7, inv, off), want)
+                info["control_unrounded_weights_share"] = control
+                require(control < BF16_WITHIN_ULP_MIN,
+                        f"stem bf16 {shape}: the unrounded-weights control "
+                        f"passes the limit ({control})")
             stem_info.append(info)
         if shape == STEM_SHAPES[0]:
             b, h, w3 = shape
@@ -273,6 +309,10 @@ def phase_kernels(dev):
                 "ms": median_ms(lambda: stem.fused_stem_packed(
                     packed, k7, inv, off, "caffe", torch.bfloat16)),
                 "plain_ms": median_ms(lambda: stem.fused_stem_plain(
+                    packed, k7, inv, off, "caffe", torch.bfloat16)),
+                # the port's unfused path: the normalize kernel, then cuDNN
+                # bf16 conv, BN, ReLU and pool as PyTorch ops
+                "library_ms": median_ms(lambda: stem_reference_packed(
                     packed, k7, inv, off, "caffe", torch.bfloat16)),
                 "shape": list(shape),
                 # u8 in, bf16 pooled out; 147 bf16-rounded products a conv
@@ -759,12 +799,14 @@ def check_stem_bwd(dev, rng, k7, inv, off):
     column shared by two tiles is rounded twice where the plain version
     rounds once; tests/test_torch_stem_bwd.py measures the same order,
     ~1e-3, against the Pallas kernel), dinv/doff as in f32; kernel vs
-    remat in f32: relative Frobenius <= 1e-4."""
+    remat in f32: relative Frobenius <= 1e-4. On both pages the bf16
+    backward's recomputed activations, pooled, must equal the forward
+    kernel's output bit for bit (the shared tensor-core conv tile)."""
     import numpy as np
     import torch
 
     from tdnet_torch.ops import stem
-    from tdnet_torch.ops.stem_vjp import fused_stem_train
+    from tdnet_torch.ops.stem_vjp import fused_stem_train, stem_reference_packed
 
     b, h, w3 = STEM_BWD_SHAPE
     w = w3 // 3
@@ -778,9 +820,18 @@ def check_stem_bwd(dev, rng, k7, inv, off):
     pages["table"] = tables.reshape(STEM_BWD_SHAPE)
     dy32 = torch.from_numpy(rng.normal(0, 1, (b, h // 4, w // 4, 64))
                             .astype(np.float32)).to(dev)
-    checks, worst = [], 0.0
+    checks, worst, fwd_bwd = [], 0.0, {}
     for name, page in pages.items():
         packed = torch.from_numpy(page).to(dev)
+        fwd = stem.fused_stem_packed(packed, k7, inv, off, "caffe", torch.bfloat16)
+        routed = stem.fused_stem_bwd_pooled(packed, k7, inv, off, "caffe")
+        same = (fwd.view(torch.int16) == routed.view(torch.int16))
+        fwd_bwd[name] = {"equal": bool(same.all().item()),
+                         "share_equal": same.float().mean().item()}
+        require(fwd_bwd[name]["equal"],
+                f"stem_bwd {name}: the backward's pooled activations differ "
+                f"from the forward kernel's ({fwd_bwd[name]['share_equal']} equal)")
+        del fwd, routed, same
         for dt in (torch.bfloat16, torch.float32):
             dy = dy32.to(dt)
             got = stem.fused_stem_bwd_packed(packed, k7, inv, off, dy, "caffe", dt)
@@ -806,10 +857,18 @@ def check_stem_bwd(dev, rng, k7, inv, off):
             checks.append(info)
     packed = torch.from_numpy(pages["random"]).to(dev)
     dy = dy32.to(torch.bfloat16)
+
+    def remat():  # fused_stem_train's "remat" backward: autograd of the unfused path
+        leaves = [t.detach().requires_grad_() for t in (k7, inv, off)]
+        with torch.enable_grad():
+            y = stem_reference_packed(packed, *leaves, "caffe", torch.bfloat16)
+            return torch.autograd.grad(y, leaves, dy)
+
     timed = {"ms": median_ms(lambda: stem.fused_stem_bwd_packed(
                  packed, k7, inv, off, dy, "caffe", torch.bfloat16)),
              "plain_ms": median_ms(lambda: stem.fused_stem_bwd_plain(
-                 packed, k7, inv, off, dy, "caffe", torch.bfloat16), iters=5)}
+                 packed, k7, inv, off, dy, "caffe", torch.bfloat16), iters=5),
+             "library_ms": median_ms(remat, iters=5)}
     grads = {}
     for mode in ("kernel", "remat"):
         k = k7.clone().requires_grad_()
@@ -822,6 +881,7 @@ def check_stem_bwd(dev, rng, k7, inv, off):
             f"fused_stem_train kernel vs remat: rel Frobenius {kernel_vs_remat}")
     return {"max_abs_err": worst, **timed, "shape": list(STEM_BWD_SHAPE),
             "checks": checks, "f32_kernel_vs_remat_rel_fro": kernel_vs_remat,
+            "bf16_fwd_bwd_activations": fwd_bwd,
             # u8 pages and bf16 dy in, 9536 f32 out; the conv recompute and
             # the filter gradient, 147 bf16-rounded products each
             "bound": bound(b * h * w3 + dy.numel() * 2 + 9536 * 4,
@@ -1789,12 +1849,14 @@ def main() -> int:
         "block": ("tdnet_torch/csrc/block.cu", "tdnet/ops/pallas_block.py:262"),
         "conv1x1": ("tdnet_torch/csrc/conv1x1.cu", "tdnet/ops/pallas_conv.py:108"),
     }
-    # library_ms: no single PyTorch call computes the first five functions
-    # (normalize + round; normalize + conv + BN + ReLU + pool; greedy NMS;
-    # the stem's pool-routed filter and BN gradients; soft-NMS rescoring);
-    # for block it is the port's unfused path on the same input (cuDNN
-    # bf16 convolutions and PyTorch's elementwise kernels, 3 blocks), for
-    # conv1x1 the unfused tail (torch.matmul bf16, then elementwise ops)
+    # library_ms: no single PyTorch call computes ingest (normalize +
+    # round), nms or soft_nms (null); for stem it is the port's unfused
+    # path (stem_reference_packed: the normalize kernel, cuDNN bf16 conv,
+    # BN, ReLU, pool), for stem_bwd that path's autograd backward with its
+    # forward (the "remat" route), for block the unfused path on the same
+    # input (cuDNN bf16 convolutions and PyTorch's elementwise kernels, 3
+    # blocks), for conv1x1 the unfused tail (torch.matmul bf16, then
+    # elementwise ops)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(name, 0) for r in runs),

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "tdnet_nms_keep": [_P, _P, _P, _I, _I, _F, _P],
     "tdnet_fused_stem_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                              _F, _F, _I, _I, _P],
+    "tdnet_fused_stem_bwd_pooled": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _F, _F, _F, _F, _I, _P],
     "tdnet_soft_nms": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     "tdnet_bottleneck": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _I, _I, _I, _I, _P],

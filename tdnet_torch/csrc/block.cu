@@ -39,9 +39,14 @@
 // levers. The tensor cores' f32 accumulation does not round like an FMA
 // chain, so bf16 outputs sit within a few ulp of the plain version, not
 // within one.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using tdnet::ldsm_x4;
+using tdnet::ldsm_x4_trans;
+using tdnet::mma_bf16;
+using tdnet::smem_addr;
 
 constexpr int kThreads = 256;
 constexpr int kTileW = 8;   // output columns of a tile
@@ -246,29 +251,6 @@ constexpr int kMKC = 32;         // k-chunk of a tensor-core pass
 constexpr int kBLd = kCB + 8;    // staged weight tile row stride (elements)
 constexpr int kALd = kMKC + 8;   // staged x chunk row stride (elements)
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // rows k0..k0+31, columns cb..cb+63 of the (kdim, ndim) bf16 weight matrix
 // into bs (zero beyond ndim); kdim % 32 == 0, ndim % 8 == 0

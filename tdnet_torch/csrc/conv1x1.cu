@@ -21,7 +21,7 @@
 // - bf16 (mma_kernel): 8 warps tile the 64 x 64 block as 2 x 4 warp tiles
 //   of 32 x 16 on mma.sync m16n8k16 (f32 accumulation), operands staged in
 //   shared memory in 32-deep k-chunks and read through ldmatrix (the
-//   fragment code of block.cu). K % 16 == 0 (every ResNet width; the wrapper
+//   fragment helpers of mma.cuh). K % 16 == 0 (every ResNet width; the wrapper
 //   rejects other K); a half chunk is zero-filled. The epilogue goes through
 //   shared memory: the accumulator, rounded to bf16, is written there, and
 //   each thread then applies the affine, residual and ReLU to 8 consecutive
@@ -37,9 +37,14 @@
 // way and makes the residual read and the output write 16-byte coalesced;
 // x is re-read once per 64 output columns, from L2. No double buffering, no
 // TMA or wgmma: later work.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using tdnet::ldsm_x4;
+using tdnet::ldsm_x4_trans;
+using tdnet::mma_bf16;
+using tdnet::smem_addr;
 
 constexpr int kThreads = 256;
 constexpr int kBM = 64;          // output rows of a block
@@ -63,29 +68,6 @@ __device__ __forceinline__ float epilogue(float y, float inv, float off,
 }
 
 // ------------------------------------------------- bf16 on the tensor cores
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // 8 bf16 values at p, zero beyond `valid` of them (16-byte load when all
 // are valid and `vec`)

@@ -8,19 +8,32 @@
 // matrix, selection-matrix downsample and channel-major output are TPU
 // workarounds; this kernel is written from the contract instead.
 //
-// Bound on the H100 by the conv's FMAs: 147 per conv output, 64 channels,
-// (H/2)(W/2) conv pixels per image, with only 3 input channels, so a
-// tensor-core GEMM would waste most of its K. Each block owns one image and
-// a tile of 4x16 pooled pixels. It stages the (4*4+7) x (4*16+7) input
-// window, normalized and rounded to the compute dtype, and the 7x7x3x64
-// weights (rounded the same way) in shared memory; computes the 9x33 conv
-// pixels it needs (each thread 16 channels of one pixel, f32 FMAs, weights
-// read as broadcast float4); applies BN, ReLU and the rounding; keeps the
-// conv tile in shared memory; and max-pools it straight into NHWC output,
-// so only the pooled activations reach device memory. Conv pixels past the
-// image's last row or column are -inf, the pool's 'SAME' padding. The
-// normalize, conv and BN arithmetic is in stem_common.cuh, which the
-// backward (stem_bwd.cu) calls too.
+// What bounds it on the H100: operations. At (16, 800, 1344) the conv is
+// 4.3 M conv pixels x 64 channels x 147 taps, 81 GFLOP, 0.082 ms on the bf16
+// tensor cores at 989 TFLOP/s, against 52 MB of uint8 in and 69 MB of bf16
+// out (0.036 ms at 3.35 TB/s). The contraction runs over all 147 taps of the
+// 7x7x3 window, so as a GEMM (M = conv pixels, N = 64, K = 147 padded to
+// 160) it fits the tensor cores with 8% of K wasted.
+//
+// bf16 (stem_mma_kernel): a persistent grid of 2 blocks a SM, 10 warps
+// each (5 row pairs x 2 channel halves of the GEMM), walks tiles of 4x8 pooled pixels through the tensor-core conv tile
+// of stem_common.cuh (cp.async double-buffered uint8 windows, normalize,
+// im2col, mma.sync with the 160x64 bf16 weights held in shared memory for
+// the block's whole run). The epilogue applies BN, ReLU and the rounding to
+// the accumulators (conv pixels past the image are -inf, the pool's 'SAME'
+// padding) into a bf16 conv tile in shared memory, and the 3x3/2 pool reads
+// it 8 channels at a time and writes 16-byte NHWC stores, so only the pooled
+// activations reach device memory. A tile recomputes the conv row and column
+// it shares with its neighbours (153 conv pixels for 128 pooled ones' 4x
+// down-sampled area). The backward (stem_bwd.cu) runs the same conv tile.
+//
+// f32 (fused_stem_kernel): CUDA-core FMAs, as f32 must equal the plain
+// version's full-f32 conv (the tensor cores would take TF32). A block owns
+// one image's 4x16 pooled pixels: it stages the (4*4+7) x (4*16+7) input
+// window, normalized, and the 7x7x3x64 weights in shared memory; computes
+// the 9x33 conv pixels it needs (each thread 16 channels of one pixel,
+// weights read as broadcast float4); applies BN, ReLU and the rounding; and
+// max-pools the conv tile straight into NHWC output.
 #include <math.h>
 
 #include "stem_common.cuh"
@@ -145,6 +158,148 @@ fused_stem_kernel(const uint8_t* __restrict__ in, const float* __restrict__ w,
   }
 }
 
+// ------------------------------------------------- bf16 on the tensor cores
+
+namespace tl = tdnet::stem::tile;
+using bf16 = __nv_bfloat16;
+
+constexpr size_t kMmaSmemBytes =
+    sizeof(bf16) * tl::kM * tl::kALd          // im2col
+    + sizeof(bf16) * tl::kK * tl::kBLd        // weights
+    + sizeof(bf16) * tl::kM * tl::kBLd        // conv tile (activations)
+    + sizeof(float) * 2 * kF                  // bn inv/off
+    + sizeof(bf16) * tl::kWinElems            // normalized window
+    + 2 * tl::kU8Bytes;                       // uint8 window, two buffers
+
+constexpr int kNT = 4;  // n8 tiles a warp: 10 warps = 5 row pairs x 2 channel halves
+constexpr int kMmaThreads = 32 * tl::kMPairs * (8 / kNT);
+
+__global__ void __launch_bounds__(kMmaThreads, 2)
+stem_mma_kernel(const uint8_t* __restrict__ in, const float* __restrict__ w,
+                const float* __restrict__ inv, const float* __restrict__ off,
+                bf16* __restrict__ out, int nb, int h, int wd, float m0,
+                float m1, float m2, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* s_a = reinterpret_cast<bf16*>(smem);
+  bf16* s_w = s_a + tl::kM * tl::kALd;
+  bf16* s_act = s_w + tl::kK * tl::kBLd;
+  float* s_inv = reinterpret_cast<float*>(s_act + tl::kM * tl::kBLd);
+  float* s_off = s_inv + kF;
+  bf16* s_win = reinterpret_cast<bf16*>(s_off + kF);
+  uint8_t* s_u8 = reinterpret_cast<uint8_t*>(s_win + tl::kWinElems);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int row0 = 32 * (warp % tl::kMPairs);   // the warp's GEMM rows
+  const int col0 = 8 * kNT * (warp / tl::kMPairs);  // and channels
+  const int h2 = h / 2, w2 = wd / 2, h4 = h / 4, w4 = wd / 4;
+  const int tiles_x = (w4 + tl::kTQ - 1) / tl::kTQ;
+  const int tiles_y = (h4 + tl::kTP - 1) / tl::kTP;
+  const int n_tiles = nb * tiles_x * tiles_y;
+
+  tl::stage_weights(s_w, w);
+  for (int i = tid; i < kF; i += kMmaThreads) {
+    s_inv[i] = inv[i];
+    s_off[i] = off[i];
+  }
+  for (int i = tid; i < tl::kM * tl::kALd; i += kMmaThreads) {
+    s_a[i] = __float2bfloat16_rn(0.0f);  // the zero pad rows and taps stay
+  }
+
+  int tile = blockIdx.x;
+  if (tile < n_tiles) {
+    tl::load_window(s_u8, in, tl::tile_at(tile, tiles_x, tiles_y), h, wd);
+  }
+  tl::cp_async_commit();
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < n_tiles) {
+      tl::load_window(s_u8 + ((it + 1) & 1) * tl::kU8Bytes, in,
+                      tl::tile_at(next, tiles_x, tiles_y), h, wd);
+    }
+    tl::cp_async_commit();
+    tl::cp_async_wait<1>();  // this tile's window has landed
+    __syncthreads();
+    const tl::Tile t = tl::tile_at(tile, tiles_x, tiles_y);
+    tl::normalize_window(s_win, s_u8 + (it & 1) * tl::kU8Bytes, t, h, wd, m0,
+                         m1, m2, scale);
+    __syncthreads();
+    tl::build_im2col(s_a, s_win);
+    __syncthreads();
+
+    float acc[2][kNT][4];
+    tl::conv_mma<kNT>(s_a, s_w, row0, col0, lane, acc);
+    // BN + ReLU + rounding into the conv tile; -inf past the image
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int m = tl::acc_row(row0, lane, i, e);
+        if (m >= tl::kPix) continue;
+        const bool in_img = tl::inside(t, m, h2, w2);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const int f = tl::acc_col(col0, lane, j, e);
+          float y[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            y[u] = in_img ? fmaxf(tdnet::stem::bn(acc[i][j][e + u], s_inv[f + u],
+                                                  s_off[f + u]), 0.0f)
+                          : -INFINITY;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(s_act + m * tl::kBLd + f) =
+              __floats2bfloat162_rn(y[0], y[1]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3x3/2 max-pool, 8 channels an item -> 16-byte NHWC stores
+    for (int item = tid; item < tl::kTP * tl::kTQ * (kF / 8); item += kMmaThreads) {
+      const int g = item % (kF / 8);
+      const int pq = item / (kF / 8);
+      const int p = pq / tl::kTQ, q = pq - p * tl::kTQ;
+      if (t.p0 + p >= h4 || t.q0 + q >= w4) continue;
+      uint4 mv = *reinterpret_cast<const uint4*>(
+          s_act + (2 * p * tl::kCC + 2 * q) * tl::kBLd + 8 * g);
+      __nv_bfloat162* m2v = reinterpret_cast<__nv_bfloat162*>(&mv);
+#pragma unroll
+      for (int d = 1; d < 9; ++d) {
+        const int pix = (2 * p + d / 3) * tl::kCC + 2 * q + d % 3;
+        uint4 v = *reinterpret_cast<const uint4*>(s_act + pix * tl::kBLd + 8 * g);
+        const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) m2v[u] = __hmax2(m2v[u], v2[u]);
+      }
+      *reinterpret_cast<uint4*>(
+          out + ((static_cast<int64_t>(t.b) * h4 + t.p0 + p) * w4 + t.q0 + q) * kF +
+          8 * g) = mv;
+    }
+  }
+}
+
+int launch_mma(const void* in, const void* w, const void* inv, const void* off,
+               void* out, int b, int h, int wd, float m0, float m1, float m2,
+               float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      stem_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMmaSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = b * ((wd / 4 + tl::kTQ - 1) / tl::kTQ) *
+                    ((h / 4 + tl::kTP - 1) / tl::kTP);
+  const int grid = tiles < 2 * sms ? tiles : 2 * sms;  // persistent: 2 a SM
+  stem_mma_kernel<<<grid, kMmaThreads, kMmaSmemBytes, stream>>>(
+      static_cast<const uint8_t*>(in), static_cast<const float*>(w),
+      static_cast<const float*>(inv), static_cast<const float*>(off),
+      static_cast<bf16*>(out), b, h, wd, m0, m1, m2, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* in, const void* w, const void* inv, const void* off,
            void* out, int b, int h, int wd, float m0, float m1, float m2,
@@ -166,7 +321,8 @@ int launch(const void* in, const void* w, const void* inv, const void* off,
 
 // in: (b, h, wd*3) uint8; w: (7, 7, 3, 64) float32 HWIO; inv/off: (64,)
 // float32; out: (b, h/4, wd/4, 64) of out_kind (tdnet::OutKind), which is
-// also the compute dtype. Needs h % 4 == 0 and wd % 4 == 0.
+// also the compute dtype: bf16 runs stem_mma_kernel, f32 fused_stem_kernel.
+// Needs h % 4 == 0, wd % 4 == 0, and `in` 4-byte aligned (cp.async words).
 TDNET_EXPORT int tdnet_fused_stem(const void* in, const void* w,
                                   const void* inv, const void* off, void* out,
                                   int b, int h, int wd, float m0, float m1,
@@ -174,8 +330,7 @@ TDNET_EXPORT int tdnet_fused_stem(const void* in, const void* w,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_kind == tdnet::kBFloat16) {
-    return launch<__nv_bfloat16>(in, w, inv, off, out, b, h, wd, m0, m1, m2,
-                                 scale, s);
+    return launch_mma(in, w, inv, off, out, b, h, wd, m0, m1, m2, scale, s);
   }
   if (out_kind == tdnet::kFloat32) {
     return launch<float>(in, w, inv, off, out, b, h, wd, m0, m1, m2, scale, s);

@@ -20,6 +20,11 @@ recomputes the conv, routes each pooled gradient to the FIRST maximum of its
 pooled), masks by ``x*inv + off > 0``, rounds ``dz = dwp*inv`` to the compute
 dtype and contracts it with the rounded input in f32. The CUDA kernel is in
 ``csrc/stem_bwd.cu``; :func:`fused_stem_bwd_plain` is the plain version.
+
+In bf16 both kernels compute the conv on the tensor cores through one shared
+tile (``csrc/stem_common.cuh``), so the activations the backward routes on
+equal the forward's bit for bit; :func:`fused_stem_bwd_pooled` returns them
+pooled, for that check. In f32 both run on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from tdnet_torch.models.resnet import max_pool_same
 from tdnet_torch.ops.ingest import mode_constants
 
 __all__ = ["LAUNCHES", "BWD_LAUNCHES", "supports_shape", "fused_stem_packed",
-           "fused_stem_plain", "fused_stem_bwd_packed", "fused_stem_bwd_plain"]
+           "fused_stem_plain", "fused_stem_bwd_packed", "fused_stem_bwd_plain",
+           "fused_stem_bwd_pooled"]
 
 LAUNCHES = _build.LaunchCounter("stem")
 BWD_LAUNCHES = _build.LaunchCounter("stem_bwd")
@@ -74,6 +80,9 @@ def _check(packed, kernel7, bn_inv, bn_off, normalize, out_dtype):
             raise ValueError(f"{name} is on {t.device}, packed on {packed.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if packed.device.type == "cuda" and packed.data_ptr() % 4:
+        raise ValueError("packed must start on a 4-byte boundary (the "
+                         "kernels copy it in 4-byte words)")
 
 
 def fused_stem_plain(packed: torch.Tensor, kernel7: torch.Tensor,
@@ -226,3 +235,36 @@ def fused_stem_bwd_packed(packed: torch.Tensor, kernel7: torch.Tensor,
     BWD_LAUNCHES.count += 1
     _build.check(err, "tdnet_fused_stem_bwd")
     return out[:_NW].view(7, 7, 3, 64), out[_NW:_NW + 64], out[_NW + 64:]
+
+
+def fused_stem_bwd_pooled(packed: torch.Tensor, kernel7: torch.Tensor,
+                          bn_inv: torch.Tensor, bn_off: torch.Tensor,
+                          normalize: str = "caffe") -> torch.Tensor:
+    """The bf16 backward kernel's recomputed activations, pooled (B, H/4,
+    W/4, 64) bf16: what it routes the pool gradient on. Equal to
+    ``fused_stem_packed(..., out_dtype=bfloat16)`` bit for bit when the two
+    kernels' conv tiles agree. CUDA only (a check of the kernels)."""
+    out_dtype = torch.bfloat16
+    _check(packed, kernel7, bn_inv, bn_off, normalize, out_dtype)
+    if packed.device.type != "cuda":
+        raise ValueError("fused_stem_bwd_pooled checks the CUDA kernels: "
+                         f"got a tensor on {packed.device}")
+    b, h, w3 = packed.shape
+    mean, scale = mode_constants(normalize)
+    dy = torch.zeros((b, h // 4, w3 // 12, 64), dtype=out_dtype,
+                     device=packed.device)
+    pooled = torch.empty_like(dy)
+    out = torch.empty(_NW + 2 * 64, dtype=torch.float32, device=packed.device)
+    partial = torch.empty((BWD_BLOCKS, out.numel()), dtype=torch.float32,
+                          device=packed.device)
+    lib = _build.library()
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tdnet_fused_stem_bwd_pooled(
+            packed.data_ptr(), kernel7.data_ptr(), bn_inv.data_ptr(),
+            bn_off.data_ptr(), dy.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), pooled.data_ptr(), b, h, w3 // 3, float(mean[0]),
+            float(mean[1]), float(mean[2]), float(scale), BWD_BLOCKS, stream)
+    BWD_LAUNCHES.count += 1
+    _build.check(err, "tdnet_fused_stem_bwd_pooled")
+    return pooled

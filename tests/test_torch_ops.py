@@ -73,9 +73,9 @@ def test_box_iou_within_one_ulp(mode):
     ((40, 30, 3), 64, 96),         # upscale
 ])
 def test_resize_image_matches_cv2(shape, min_side, max_side):
-    """numpy INTER_LINEAR mirror vs cv2 (the reference's resize) at atol
-    1e-3 on 0..255 data: cv2 may use FMA/SIMD, so the last f32 bits can
-    differ."""
+    """numpy INTER_LINEAR mirror vs cv2 (the reference's resize) on 0..255
+    float data: equal bit for bit (IPP's float path; more scales in
+    tests/test_torch_resize.py)."""
     from tdnet.data.image import resize_image as ref
     from tdnet_torch.data.image import resize_image
 
@@ -84,7 +84,7 @@ def test_resize_image_matches_cv2(shape, min_side, max_side):
     got, scale = resize_image(img, min_side=min_side, max_side=max_side)
     assert scale == want_scale
     assert got.shape == want.shape and got.dtype == want.dtype
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_resize_scale_and_buckets_match_reference():

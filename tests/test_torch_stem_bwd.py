@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from tdnet_torch.ops.stem import fused_stem_bwd_packed, fused_stem_bwd_plain
+from tdnet_torch.ops.stem import (fused_stem_bwd_packed, fused_stem_bwd_plain,
+                                  fused_stem_bwd_pooled, fused_stem_packed)
 from tdnet_torch.ops.stem_vjp import fused_stem_train
 
 torch.set_num_threads(1)  # tier-1 runs several xdist workers
@@ -221,3 +222,27 @@ def test_cuda_stem_bwd_equals_plain(cuda, dtype, shape):
         else:
             np.testing.assert_allclose(g, wv, rtol=1e-4,
                                        atol=1e-5 * np.abs(wv).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 64, 128), (2, 40, 200), (1, 48, 64)])
+def test_cuda_stem_bwd_routes_on_the_forward_activations(cuda, shape):
+    """bf16: the backward's recomputed activations, pooled, equal the
+    forward kernel's output bit for bit (one tensor-core conv tile serves
+    both), ragged tiles and the tie-heavy page included."""
+    b, h, w = shape
+    raw = _table_page() if shape == (1, 48, 64) else _random_page(b, h, w, 21)
+    packed = torch.from_numpy(raw.reshape(b, h, w * 3)).to(cuda)
+    k7, inv, off = (torch.from_numpy(a).to(cuda) for a in _params(22))
+    fwd = fused_stem_packed(packed, k7, inv, off, "caffe", torch.bfloat16)
+    routed = fused_stem_bwd_pooled(packed, k7, inv, off, "caffe")
+    assert torch.equal(fwd.view(torch.int16), routed.view(torch.int16))
+
+
+def test_stem_bwd_pooled_is_cuda_only():
+    """The routing check reads the CUDA kernel: a CPU tensor raises."""
+    raw = _random_page(1, 16, 16, 23)
+    k7, inv, off = (torch.from_numpy(a) for a in _params(24))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_stem_bwd_pooled(torch.from_numpy(raw.reshape(1, 16, 48)), k7,
+                              inv, off, "caffe")
