@@ -77,6 +77,8 @@ SOFT_SIGMA = 0.5
 BLOCK_STAGES = [(2, 256, 256, 64, 2), (3, 128, 512, 128, 3),
                 (4, 64, 1024, 256, 3), (5, 32, 2048, 512, 2)]
 BLOCK_BATCH = 4
+BLOCK_TIMED_BATCH = 16               # config 4's dispatch: one launch a stage timed,
+BLOCK_BURST = 10                     # in bursts of 10 calls (device time, not host)
 # the bf16 (tensor-core) block at depth 1 vs its plain version: least share
 # of outputs within 1 bf16 ulp, most ulps of max(|v|, 1) of any output, most
 # relative Frobenius error. Set from the sound readings at the four stage
@@ -127,8 +129,10 @@ def require(cond, msg) -> None:
         raise PhaseError(msg)
 
 
-def median_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median of per-call CUDA-event times, after warm-up calls."""
+def median_ms(fn, iters: int = 10, warmup: int = 2, burst: int = 1) -> float:
+    """Median of per-call CUDA-event times, after warm-up calls; with
+    `burst`, each time spans that many calls in a row and is divided by it
+    (the host work of a call then overlaps the device work before it)."""
     import torch
 
     for _ in range(warmup):
@@ -139,10 +143,11 @@ def median_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(burst):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / burst)
     times.sort()
     return times[len(times) // 2]
 
@@ -160,6 +165,40 @@ def bound(n_bytes: float, n_ops: float, rate: str):
     t_bytes = n_bytes / PEAK["bytes"] * 1e3
     t_ops = n_ops / PEAK[rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_profile(fn, match: str):
+    """Run fn once under torch.profiler: wall seconds, the device's busy
+    milliseconds (the union of its kernel and copy intervals), and the
+    summed device milliseconds and count of the kernels whose name holds
+    `match`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    spans, hit_us, hits = [], 0.0, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        if match in e.name:
+            hit_us += b - a
+            hits += 1
+    spans.sort()
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
+            "matched_ms": hit_us / 1e3, "matched_kernels": hits}
 
 
 def rel_fro(got, want) -> float:
@@ -508,9 +547,51 @@ def _block_variant(x, weights, accumulate="f32", pad="t1"):
     return torch.relu(mm(t2, w3) * i3.to(f) + o3.to(f) + xf).to(cd)
 
 
+def _cudnn_blocks(weights, dev, c, m, depth):
+    """The port's unfused path for a chain's weights: one eval-mode
+    ``Bottleneck`` module (cuDNN convolutions, channels_last) a block, its
+    frozen BN folding to the chain's (inv, off) pairs."""
+    import torch
+
+    from tdnet_torch.models.resnet import Bottleneck
+
+    blocks = []
+    for d in range(depth):
+        blk = Bottleneck(c, m).to(dev)
+        with torch.no_grad():
+            blk.conv1.weight.copy_(weights[0][d].t()[:, :, None, None])
+            blk.conv2.weight.copy_(weights[1][d].permute(3, 2, 0, 1))
+            blk.conv3.weight.copy_(weights[2][d].t()[:, :, None, None])
+            for j, bn in enumerate((blk.bn1, blk.bn2, blk.bn3)):
+                bn.scale.copy_(weights[3 + 2 * j][d])
+                bn.bias.copy_(weights[4 + 2 * j][d])
+                bn.var.fill_(1.0 - bn.epsilon)  # folds to inv = scale
+        blocks.append(blk.to(memory_format=torch.channels_last).eval())
+
+    def run(x):
+        with torch.inference_mode():
+            y = x.permute(0, 3, 1, 2)
+            for blk in blocks:
+                y = blk(y)
+            return y
+
+    return run
+
+
+def block_bound(x, depth, c, m):
+    """((ms, what bounds it), operations) of a bf16 chain of `depth` blocks
+    on x: x read and the output written in bf16, bf16 weights and f32 BN
+    vectors read once, 2 (2CM + 9M^2) operations a pixel and block on the
+    tensor cores."""
+    b, h, w, _ = x.shape
+    flops = 2 * b * h * w * depth * (2 * c * m + 9 * m * m)
+    wbytes = depth * (2 * c * m + 9 * m * m) * 2 + depth * (4 * m + 2 * c) * 4
+    return bound(2 * x.numel() * 2 + wbytes, flops, "bf16"), flops
+
+
 def check_block(dev, rng):
     """The fused bottleneck kernel vs its plain version on config 4's four
-    stage shapes at batch 4.
+    stage shapes at batch 4, and stage 4 again at config 4's batch 16.
 
     f32 (TF32 off, the CUDA-core body): the stage's chain, within rtol =
     atol = 3e-5 (tests/ops/test_pallas_block.py's chain bound).
@@ -524,17 +605,23 @@ def check_block(dev, rng):
     SAME padding on x instead of t1, and the kernel itself fed a 3x3 filter
     whose left and right taps are swapped, or its BN vectors rounded to
     bf16. Reported beside them: the kernel's and the plain version's
-    distance from the float64 block.
+    distance from the float64 block. Two runs of the kernel on the same
+    input must be bit-equal (the persistent grid walks its tiles in a fixed
+    order). Stage 4 at batch 16, where the persistent grid wraps, is held
+    to the same limits and must be bit-equal too.
 
-    Timed: stage 4's 3-block chain in bf16, and the port's unfused path
-    (cuDNN blocks) on the same input and weights as the library
-    yardstick."""
+    Timed, at batch 16 (config 4's dispatch): one bf16 launch at each stage
+    shape, with its bound and the port's unfused path on the same input (one
+    cuDNN ``Bottleneck``) as the library yardstick, both in bursts of
+    BLOCK_BURST calls so that the wrapper's host work does not count;
+    stage 4 also against the plain version. The kernels line reports stage 4 at batch 16. Also timed,
+    for the history of PERF.md: stage 4's 3-block chain at batch 4."""
     import torch
 
-    from tdnet_torch.models.resnet import Bottleneck
     from tdnet_torch.ops import block
 
-    checks, worst, timed = [], 0.0, None
+    checks, worst, timed, per_stage = [], 0.0, None, []
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     for stage, hw, c, m, depth in BLOCK_STAGES:
         x32, weights = _chain_inputs(rng, dev, depth, hw, c, m, BLOCK_BATCH)
         info = {"stage": stage, "shape": [BLOCK_BATCH, hw, hw, c], "cmid": m}
@@ -556,6 +643,8 @@ def check_block(dev, rng):
         got = block.fused_bottleneck_chain(x, *one)
         want = block.fused_bottleneck_chain_plain(x, *one)
         require(torch.isfinite(got).all().item(), f"block stage {stage} bf16: non-finite")
+        require(torch.equal(got, block.fused_bottleneck_chain(x, *one)),
+                f"block stage {stage} bf16: two runs differ")
         sound = bf16_readings(got, want)
         worst = max(worst, sound["max_abs_err"])
         swapped = one[1].clone()
@@ -572,7 +661,7 @@ def check_block(dev, rng):
         f64 = _block_variant(x, one, accumulate="f64")
         info["bf16"] = {
             "depth": 1, "scale": want.float().abs().max().item(), "kernel": sound,
-            "controls": controls,
+            "runs_bit_equal": True, "controls": controls,
             "kernel_vs_f64": bf16_readings(got, f64),
             "plain_vs_f64": bf16_readings(want, f64)}
         require(bf16_block_ok(sound), f"block stage {stage} bf16: {sound} "
@@ -580,46 +669,50 @@ def check_block(dev, rng):
         for name, r in controls.items():
             require(not bf16_block_ok(r),
                     f"block stage {stage} bf16: control {name} passes the limits: {r}")
-        checks.append(info)
         del got, want, f64, swapped
-        if stage == 4:
-            blocks = []
-            for d in range(depth):
-                blk = Bottleneck(c, m).to(dev)
-                with torch.no_grad():
-                    blk.conv1.weight.copy_(weights[0][d].t()[:, :, None, None])
-                    blk.conv2.weight.copy_(weights[1][d].permute(3, 2, 0, 1))
-                    blk.conv3.weight.copy_(weights[2][d].t()[:, :, None, None])
-                    for j, bn in enumerate((blk.bn1, blk.bn2, blk.bn3)):
-                        bn.scale.copy_(weights[3 + 2 * j][d])
-                        bn.bias.copy_(weights[4 + 2 * j][d])
-                        bn.var.fill_(1.0 - bn.epsilon)  # folds to inv = scale
-                blocks.append(blk.to(memory_format=torch.channels_last).eval())
-
-            def unfused():
-                with torch.inference_mode():
-                    y = x.permute(0, 3, 1, 2)
-                    for blk in blocks:
-                        y = blk(y)
-                    return y
-
-            flops = 2 * BLOCK_BATCH * hw * hw * depth * (2 * c * m + 9 * m * m)
-            wbytes = depth * (2 * c * m + 9 * m * m) * 2 + depth * (4 * m + 2 * c) * 4
-            timed = {
+        if stage == 4:  # PERF.md's history: the 3-block chain at batch 4
+            unfused = _cudnn_blocks(weights, dev, c, m, depth)
+            (bnd, flops) = block_bound(x, depth, c, m)
+            info["chain_b4"] = {
                 "ms": median_ms(lambda: block.fused_bottleneck_chain(x, *weights)),
                 "plain_ms": median_ms(lambda: block.fused_bottleneck_chain_plain(x, *weights),
                                       iters=5),
-                "library_ms": median_ms(unfused),
-                "timed_shape": [BLOCK_BATCH, hw, hw, c], "timed_cmid": m,
-                "timed_depth": depth, "timed_dtype": "bfloat16",
-                "timed_gflop": flops / 1e9,
-                # bf16 x in and out, bf16 weights, f32 BN; bf16 tensor cores
-                "bound": bound(2 * x.numel() * 2 + wbytes, flops, "bf16")}
-            del blocks
-        del x, x32, weights
-    return {"max_abs_err": worst, **timed, "checks": checks,
+                "library_ms": median_ms(lambda: unfused(x)),
+                "shape": [BLOCK_BATCH, hw, hw, c], "cmid": m, "depth": depth,
+                "gflop": flops / 1e9, "bound": bnd}
+            del unfused
+        # batch 16: one launch, timed; stage 4 checked
+        x16 = torch.randn((BLOCK_TIMED_BATCH, hw, hw, c), generator=gen, device=dev,
+                          dtype=torch.float32).to(torch.bfloat16)
+        unfused = _cudnn_blocks(one, dev, c, m, 1)
+        (bnd, flops) = block_bound(x16, 1, c, m)
+        row = {"stage": stage, "shape": list(x16.shape), "cmid": m, "depth": 1,
+               "gflop": flops / 1e9, "bound": bnd,
+               "ms": median_ms(lambda: block.fused_bottleneck_chain(x16, *one),
+                               burst=BLOCK_BURST),
+               "library_ms": median_ms(lambda: unfused(x16), burst=BLOCK_BURST)}
+        if stage == 4:
+            got = block.fused_bottleneck_chain(x16, *one)
+            want = block.fused_bottleneck_chain_plain(x16, *one)
+            require(torch.equal(got, block.fused_bottleneck_chain(x16, *one)),
+                    "block stage 4 bf16 batch 16: two runs differ")
+            sound = bf16_readings(got, want)
+            worst = max(worst, sound["max_abs_err"])
+            require(bf16_block_ok(sound), f"block stage 4 bf16 batch 16: {sound} "
+                                          f"beyond {BLOCK_BF16_LIMITS}")
+            row["kernel"] = sound
+            row["plain_ms"] = median_ms(
+                lambda: block.fused_bottleneck_chain_plain(x16, *one), iters=5)
+            timed = {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound")}
+            timed.update(timed_shape=row["shape"], timed_cmid=m, timed_depth=1,
+                         timed_dtype="bfloat16", timed_gflop=row["gflop"])
+            del got, want
+        per_stage.append(row)
+        checks.append(info)
+        del x, x32, x16, weights, unfused
+    return {"max_abs_err": worst, **timed, "checks": checks, "batch16": per_stage,
             "bf16_limits": BLOCK_BF16_LIMITS,
-            "library": "the port's unfused path: 3 Bottleneck modules, cuDNN bf16 convs"}
+            "library": "the port's unfused path: Bottleneck modules, cuDNN bf16 convs"}
 
 
 def _conv1x1_inputs(rng, dev, batch, h, w, k, n):
@@ -1469,6 +1562,14 @@ def phase_predict_r101(dev):
     require(pred.dispatch_count >= 1, "no dispatch")
     require(launches["block"] == R101_BLOCK_LAUNCHES and launches["stem"] >= 1
             and launches["nms"] >= 1, f"config 4 launches: {launches}")
+    host_prep_s, dispatch_s = pred.host_prep_s, pred.dispatch_s
+    prof = None
+    if dev.type == "cuda":  # one dispatch under the profiler: the block kernel's share
+        prof = device_profile(lambda: pred.predict_batch(pages), match="bottleneck")
+        require(prof["matched_kernels"] == R101_BLOCK_LAUNCHES,
+                f"profiled dispatch: {prof['matched_kernels']} block kernels")
+        prof["block_share_of_busy"] = prof["matched_ms"] / prof["device_busy_ms"]
+        prof["block_share_of_dispatch"] = prof["matched_ms"] / 1e3 / dispatch_s
 
     small = dict(min_side=R101_PARITY_SIDE, max_side=R101_PARITY_SIDE)
     parity_pages = synthetic_pages(2, 0, SEED + 5, sizes=((550, 500), None))
@@ -1499,9 +1600,9 @@ def phase_predict_r101(dev):
           "model": "resnet101 retinanet, 1 class, block_kernel", "dtype": "bfloat16",
           "pages": len(pages), "bucket": [R101_SIDE, R101_SIDE],
           "images_per_s": len(pages) / elapsed, "seconds": elapsed,
-          "host_prep_s": pred.host_prep_s, "dispatch_s": pred.dispatch_s,
+          "host_prep_s": host_prep_s, "dispatch_s": dispatch_s,
           "detections": n_det, "launches": launches, "peak_mem_gb": peak,
-          "parity_f32_512": parity, "f32_kernel_on_vs_off_max_abs": on_off})
+          "profile": prof, "parity_f32_512": parity, "f32_kernel_on_vs_off_max_abs": on_off})
     return launches
 
 
@@ -1854,9 +1955,9 @@ def main() -> int:
     # path (stem_reference_packed: the normalize kernel, cuDNN bf16 conv,
     # BN, ReLU, pool), for stem_bwd that path's autograd backward with its
     # forward (the "remat" route), for block the unfused path on the same
-    # input (cuDNN bf16 convolutions and PyTorch's elementwise kernels, 3
-    # blocks), for conv1x1 the unfused tail (torch.matmul bf16, then
-    # elementwise ops)
+    # input (one Bottleneck: cuDNN bf16 convolutions and PyTorch's
+    # elementwise kernels; stage 4 at batch 16), for conv1x1 the unfused
+    # tail (torch.matmul bf16, then elementwise ops)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(name, 0) for r in runs),

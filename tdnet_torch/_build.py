@@ -52,6 +52,7 @@ _SIGNATURES = {
     "tdnet_soft_nms": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     "tdnet_bottleneck": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _I, _I, _I, _I, _P],
+    "tdnet_bottleneck_launch_info": [_I, _I, _I, _I, _I, _P],
     "tdnet_conv1x1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

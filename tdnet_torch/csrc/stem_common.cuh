@@ -136,17 +136,9 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(smem_addr(dst)), "l"(src));
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
+using tdnet::cp_async16;
+using tdnet::cp_async_commit;
+using tdnet::cp_async_wait;
 
 // Stage the weights (7, 7, 3, 64) f32 as (kK, kBLd) bf16, rows 147-159 zero.
 __device__ __forceinline__ void stage_weights(bf16* s_w, const float* __restrict__ w) {

@@ -12,12 +12,16 @@ compute-dtype operands accumulate in f32, and BN, ReLU and the residual are
 f32. Inference only: no gradient.
 
 The CUDA kernel is in ``csrc/block.cu`` (one launch per block of the chain;
-bfloat16 on the tensor cores, which needs M % 32 == 0, as every ResNet width
-has); :func:`fused_bottleneck_chain_plain` is the plain PyTorch version. The
-TPU kernel's row tiling (``tm``, ``_resolve_tm``) has no counterpart.
+bfloat16 on the tensor cores through ``wgmma``, which needs M % 32 == 0, as
+every ResNet width has: a persistent grid of 16x8- or 8x8-pixel tiles fed by
+a cp.async ring of weight chunks, :func:`launch_info`);
+:func:`fused_bottleneck_chain_plain` is the plain PyTorch version. The TPU kernel's row tiling (``tm``,
+``_resolve_tm``) has no counterpart.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +30,7 @@ from tdnet_torch import _build
 from tdnet_torch.device import no_tf32
 
 __all__ = ["LAUNCHES", "supports_block", "fused_bottleneck_chain",
-           "fused_bottleneck_chain_plain", "fused_bottleneck"]
+           "fused_bottleneck_chain_plain", "fused_bottleneck", "launch_info"]
 
 LAUNCHES = _build.LaunchCounter("block")
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -104,8 +108,9 @@ def fused_bottleneck_chain(x, w1s, w2s, w3s, bn1_inv, bn1_off, bn2_inv,
                            bn2_off, bn3_inv, bn3_off,
                            out_dtype=None) -> torch.Tensor:
     """A run of D identity bottlenecks. CUDA tensors launch the CUDA kernel
-    once per block (the weights are rounded to x's dtype first; bfloat16
-    needs M % 32 == 0); CPU tensors use the plain version."""
+    once per block (the weights are rounded to x's dtype first, and for
+    bfloat16, which needs M % 32 == 0, laid out K-major once per call); CPU
+    tensors use the plain version."""
     bns = (bn1_inv, bn1_off, bn2_inv, bn2_off, bn3_inv, bn3_off)
     out_dtype = out_dtype or x.dtype
     _check(x, w1s, w2s, w3s, bns, out_dtype)
@@ -120,6 +125,10 @@ def fused_bottleneck_chain(x, w1s, w2s, w3s, bn1_inv, bn1_off, bn2_inv,
     if cd == torch.bfloat16 and m % 32:
         raise ValueError(f"the bfloat16 kernel needs M % 32 == 0, got M {m}")
     w1s, w2s, w3s = (t.to(cd).contiguous() for t in (w1s, w2s, w3s))
+    if cd == torch.bfloat16:  # K-major, as the kernel's wgmma reads them
+        w1s = w1s.transpose(1, 2).contiguous()
+        w2s = w2s.permute(0, 4, 1, 2, 3).reshape(depth, m, 9 * m).contiguous()
+        w3s = w3s.transpose(1, 2).contiguous()
     bns = tuple(t.contiguous() for t in bns)
     src = x.contiguous()
     if b == 0:
@@ -139,6 +148,18 @@ def fused_bottleneck_chain(x, w1s, w2s, w3s, bn1_inv, bn1_off, bn2_inv,
             _build.check(err, "tdnet_bottleneck")
             src = dst
     return src.to(out_dtype)
+
+
+def launch_info(b: int, h: int, w: int, c: int, m: int) -> dict:
+    """What the bfloat16 kernel launches for a (b, h, w, c) input of width
+    m on the current CUDA device, without launching: tile height, pass
+    width, dynamic shared bytes, persistent grid, tiles, blocks an SM."""
+    info = (ctypes.c_int * 6)()
+    lib = _build.library()
+    _build.check(lib.tdnet_bottleneck_launch_info(b, h, w, c, m, info),
+                 "tdnet_bottleneck_launch_info")
+    keys = ("tile_h", "pass_n", "smem_bytes", "grid", "tiles", "blocks_per_sm")
+    return dict(zip(keys, info))
 
 
 def fused_bottleneck(x, w1, w2, w3, bn1_inv, bn1_off, bn2_inv, bn2_off,

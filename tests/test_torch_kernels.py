@@ -302,6 +302,27 @@ def test_cuda_block_chain_equals_plain(cuda, dtype, depth, h, w, c, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,m,tile_h,pass_n", [
+    (1, 20, 24, 128, 32, 16, 32), (3, 13, 16, 256, 64, 16, 64),
+    (2, 9, 16, 2048, 512, 8, 128)])
+def test_cuda_block_bf16_tiles_and_reruns(cuda, b, h, w, c, m, tile_h, pass_n):
+    """The bf16 kernel's launch (tile height, pass width, one block an SM,
+    a persistent grid no larger than the tiles) at ragged heights, and two
+    runs on the same input bit-equal (tiles in a fixed order)."""
+    from tdnet_torch.ops.block import launch_info
+
+    info = launch_info(b, h, w, c, m)
+    assert (info["tile_h"], info["pass_n"]) == (tile_h, pass_n), info
+    assert info["tiles"] == b * (w // 8) * -(-h // tile_h)
+    assert 1 <= info["grid"] <= info["tiles"] and info["smem_bytes"] <= 232448
+    x, args = _block_inputs(cuda, torch.bfloat16, 1, h, w, c, m)
+    x = x[:1].expand(b, h, w, c).contiguous()
+    first = fused_bottleneck_chain(x, *args)
+    assert torch.equal(first, fused_bottleneck_chain(x, *args))
+    assert torch.equal(first[0], first[-1])  # each image alone, whatever its tiles' blocks
+
+
+@pytest.mark.cuda
 def test_cuda_block_bf16_needs_m_multiple_of_32(cuda):
     """The bf16 kernel runs on the tensor cores only: M 8 raises on CUDA
     (the plain version on the CPU takes it)."""
