@@ -167,11 +167,13 @@ def bound(n_bytes: float, n_ops: float, rate: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_profile(fn, match: str):
-    """Run fn once under torch.profiler: wall seconds, the device's busy
-    milliseconds (the union of its kernel and copy intervals), and the
-    summed device milliseconds and count of the kernels whose name holds
-    `match`."""
+def device_profile(fn, match: str = "", steps: int = 1, top: int = 8):
+    """Run fn `steps` times under torch.profiler: wall seconds, the
+    device's busy milliseconds (the union of its kernel and copy intervals;
+    a user annotation's device span covers the gaps between its kernels, so
+    annotations are left out), the summed device milliseconds and count of
+    the kernels whose name holds `match`, and the `top` kernels by summed
+    device time as [name, ms]."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -179,16 +181,18 @@ def device_profile(fn, match: str):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        fn()
+        for _ in range(steps):
+            fn()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    spans, hit_us, hits = [], 0.0, 0
+    spans, by_name, hit_us, hits = [], {}, 0.0, 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
-        if match in e.name:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
+        if match and match in e.name:
             hit_us += b - a
             hits += 1
     spans.sort()
@@ -197,8 +201,10 @@ def device_profile(fn, match: str):
         if b > end:
             busy_us += b - max(a, end)
             end = b
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
-            "matched_ms": hit_us / 1e3, "matched_kernels": hits}
+            "matched_ms": hit_us / 1e3, "matched_kernels": hits,
+            "top_kernels_ms": [[n[:80], round(ms, 4)] for n, ms in ranked]}
 
 
 def rel_fro(got, want) -> float:
@@ -591,7 +597,7 @@ def block_bound(x, depth, c, m):
 
 def check_block(dev, rng):
     """The fused bottleneck kernel vs its plain version on config 4's four
-    stage shapes at batch 4, and stage 4 again at config 4's batch 16.
+    stage shapes at batch 4, and again at config 4's batch 16.
 
     f32 (TF32 off, the CUDA-core body): the stage's chain, within rtol =
     atol = 3e-5 (tests/ops/test_pallas_block.py's chain bound).
@@ -607,15 +613,16 @@ def check_block(dev, rng):
     bf16. Reported beside them: the kernel's and the plain version's
     distance from the float64 block. Two runs of the kernel on the same
     input must be bit-equal (the persistent grid walks its tiles in a fixed
-    order). Stage 4 at batch 16, where the persistent grid wraps, is held
-    to the same limits and must be bit-equal too.
+    order). At batch 16 (config 4's dispatch), where the persistent grid
+    wraps at every stage, one bf16 block a stage is held to the same limits
+    and must be bit-equal too.
 
-    Timed, at batch 16 (config 4's dispatch): one bf16 launch at each stage
-    shape, with its bound and the port's unfused path on the same input (one
-    cuDNN ``Bottleneck``) as the library yardstick, both in bursts of
-    BLOCK_BURST calls so that the wrapper's host work does not count;
-    stage 4 also against the plain version. The kernels line reports stage 4 at batch 16. Also timed,
-    for the history of PERF.md: stage 4's 3-block chain at batch 4."""
+    Timed, at batch 16: that launch at each stage shape, with its bound and
+    the port's unfused path on the same input (one cuDNN ``Bottleneck``) as
+    the library yardstick, both in bursts of BLOCK_BURST calls so that the
+    wrapper's host work does not count; stage 4 also against the plain
+    version. The kernels line reports stage 4 at batch 16. Also timed, for
+    the history of PERF.md: stage 4's 3-block chain at batch 4."""
     import torch
 
     from tdnet_torch.ops import block
@@ -681,32 +688,34 @@ def check_block(dev, rng):
                 "shape": [BLOCK_BATCH, hw, hw, c], "cmid": m, "depth": depth,
                 "gflop": flops / 1e9, "bound": bnd}
             del unfused
-        # batch 16: one launch, timed; stage 4 checked
+        # batch 16: one launch at each stage, checked and timed
         x16 = torch.randn((BLOCK_TIMED_BATCH, hw, hw, c), generator=gen, device=dev,
                           dtype=torch.float32).to(torch.bfloat16)
+        got = block.fused_bottleneck_chain(x16, *one)
+        want = block.fused_bottleneck_chain_plain(x16, *one)
+        require(torch.isfinite(got).all().item(),
+                f"block stage {stage} bf16 batch 16: non-finite")
+        require(torch.equal(got, block.fused_bottleneck_chain(x16, *one)),
+                f"block stage {stage} bf16 batch 16: two runs differ")
+        sound = bf16_readings(got, want)
+        worst = max(worst, sound["max_abs_err"])
+        require(bf16_block_ok(sound), f"block stage {stage} bf16 batch 16: {sound} "
+                                      f"beyond {BLOCK_BF16_LIMITS}")
+        del got, want
         unfused = _cudnn_blocks(one, dev, c, m, 1)
         (bnd, flops) = block_bound(x16, 1, c, m)
         row = {"stage": stage, "shape": list(x16.shape), "cmid": m, "depth": 1,
-               "gflop": flops / 1e9, "bound": bnd,
+               "gflop": flops / 1e9, "bound": bnd, "kernel": sound,
+               "runs_bit_equal": True,
                "ms": median_ms(lambda: block.fused_bottleneck_chain(x16, *one),
                                burst=BLOCK_BURST),
                "library_ms": median_ms(lambda: unfused(x16), burst=BLOCK_BURST)}
         if stage == 4:
-            got = block.fused_bottleneck_chain(x16, *one)
-            want = block.fused_bottleneck_chain_plain(x16, *one)
-            require(torch.equal(got, block.fused_bottleneck_chain(x16, *one)),
-                    "block stage 4 bf16 batch 16: two runs differ")
-            sound = bf16_readings(got, want)
-            worst = max(worst, sound["max_abs_err"])
-            require(bf16_block_ok(sound), f"block stage 4 bf16 batch 16: {sound} "
-                                          f"beyond {BLOCK_BF16_LIMITS}")
-            row["kernel"] = sound
             row["plain_ms"] = median_ms(
                 lambda: block.fused_bottleneck_chain_plain(x16, *one), iters=5)
             timed = {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound")}
             timed.update(timed_shape=row["shape"], timed_cmid=m, timed_depth=1,
                          timed_dtype="bfloat16", timed_gflop=row["gflop"])
-            del got, want
         per_stage.append(row)
         checks.append(info)
         del x, x32, x16, weights, unfused

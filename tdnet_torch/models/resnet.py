@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tdnet_torch.models.layers import Conv2d, FrozenBatchNorm, same_pads
-from tdnet_torch.ops.block import fused_bottleneck_chain, supports_block
+from tdnet_torch.ops.block import fused_bottleneck_chain, kmajor_weights, supports_block
 
 __all__ = ["STAGE_SIZES", "Bottleneck", "StemConv", "ResNet", "max_pool_same"]
 
@@ -93,7 +93,7 @@ class ResNet(nn.Module):
         self.dtype = dtype
         self.stage_sizes = tuple(stage_sizes)
         self.block_kernel = block_kernel  # inference-only
-        self._chain_cache = {}  # stage -> (key, stacked chain weights)
+        self._chain_cache = {}  # stage -> (key, (stacked weights, K-major or None))
         self.conv1 = StemConv(64)
         self.bn1 = FrozenBatchNorm(64)
         cin, filters = 64, 64
@@ -141,15 +141,17 @@ class ResNet(nn.Module):
             for block in blocks:
                 x = block(x)
             return x
-        y = fused_bottleneck_chain(x.permute(0, 2, 3, 1),
-                                   *self._chain_weights(stage, blocks))
+        weights, kmajor = self._chain_weights(stage, blocks)
+        y = fused_bottleneck_chain(x.permute(0, 2, 3, 1), *weights, kmajor=kmajor)
         return y.permute(0, 3, 1, 2)
 
     def _chain_weights(self, stage: int, blocks):
         """The run's weights stacked for the kernel (w1s (D, C, M), w2s
         (D, 3, 3, M, M), w3s (D, M, C) in the compute dtype, folded BN in
-        f32), built once and rebuilt only when a weight is replaced or
-        changed in place (its storage or version counter moves)."""
+        f32), and for bfloat16 on CUDA their K-major layout
+        (``kmajor_weights``, else None), built once and rebuilt only when a
+        weight is replaced or changed in place (its storage or version
+        counter moves)."""
         tensors = [t for blk in blocks for t in (
             blk.conv1.weight, blk.conv2.weight, blk.conv3.weight,
             *(getattr(getattr(blk, bn), a) for bn in ("bn1", "bn2", "bn3")
@@ -169,5 +171,7 @@ class ResNet(nn.Module):
             weights = tuple(t.to(self.dtype).contiguous() for t in weights) + tuple(
                 torch.stack([f[i][j] for f in folded]).contiguous()
                 for i in range(3) for j in range(2))
-        self._chain_cache[stage] = (key, weights)
-        return weights
+        kmajor = (kmajor_weights(*weights[:3])
+                  if self.dtype == torch.bfloat16 and weights[0].is_cuda else None)
+        self._chain_cache[stage] = (key, (weights, kmajor))
+        return weights, kmajor

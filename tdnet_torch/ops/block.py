@@ -14,7 +14,8 @@ f32. Inference only: no gradient.
 The CUDA kernel is in ``csrc/block.cu`` (one launch per block of the chain;
 bfloat16 on the tensor cores through ``wgmma``, which needs M % 32 == 0, as
 every ResNet width has: a persistent grid of 16x8- or 8x8-pixel tiles fed by
-a cp.async ring of weight chunks, :func:`launch_info`);
+a cp.async ring of weight chunks, :func:`launch_info`, that reads its
+weights K-major, :func:`kmajor_weights`);
 :func:`fused_bottleneck_chain_plain` is the plain PyTorch version. The TPU kernel's row tiling (``tm``,
 ``_resolve_tm``) has no counterpart.
 """
@@ -30,7 +31,8 @@ from tdnet_torch import _build
 from tdnet_torch.device import no_tf32
 
 __all__ = ["LAUNCHES", "supports_block", "fused_bottleneck_chain",
-           "fused_bottleneck_chain_plain", "fused_bottleneck", "launch_info"]
+           "fused_bottleneck_chain_plain", "fused_bottleneck", "kmajor_weights",
+           "launch_info"]
 
 LAUNCHES = _build.LaunchCounter("block")
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -104,13 +106,40 @@ def fused_bottleneck_chain_plain(x, w1s, w2s, w3s, bn1_inv, bn1_off,
     return y.permute(0, 2, 3, 1).contiguous().to(out_dtype)
 
 
+def kmajor_weights(w1s, w2s, w3s):
+    """The bfloat16 kernel's weight layout: w1s (D, C, M), w2s
+    (D, 3, 3, M, M) and w3s (D, M, C) rounded to bfloat16 and laid out
+    K-major, as its wgmma reads them: (D, M, C), (D, M, 9M) with K ordered
+    (dy, dx, input channel), and (D, C, M). A caller that runs the same
+    weights many times lays them out once and passes the result to
+    :func:`fused_bottleneck_chain` as ``kmajor``."""
+    depth, _, m = w1s.shape
+    bf = torch.bfloat16
+    with torch.no_grad():
+        return (w1s.to(bf).transpose(1, 2).contiguous(),
+                w2s.to(bf).permute(0, 4, 1, 2, 3).reshape(depth, m, 9 * m).contiguous(),
+                w3s.to(bf).transpose(1, 2).contiguous())
+
+
+def _check_kmajor(kmajor, w1s, device):
+    depth, c, m = w1s.shape
+    want = ((depth, m, c), (depth, m, 9 * m), (depth, c, m))
+    if len(kmajor) != 3 or any(
+            tuple(t.shape) != s or t.dtype != torch.bfloat16 or not t.is_contiguous()
+            or t.device != device for t, s in zip(kmajor, want)):
+        raise ValueError("kmajor must be kmajor_weights(w1s, w2s, w3s) on x's "
+                         f"device: contiguous bfloat16 {want}")
+
+
 def fused_bottleneck_chain(x, w1s, w2s, w3s, bn1_inv, bn1_off, bn2_inv,
-                           bn2_off, bn3_inv, bn3_off,
-                           out_dtype=None) -> torch.Tensor:
+                           bn2_off, bn3_inv, bn3_off, out_dtype=None,
+                           kmajor=None) -> torch.Tensor:
     """A run of D identity bottlenecks. CUDA tensors launch the CUDA kernel
-    once per block (the weights are rounded to x's dtype first, and for
-    bfloat16, which needs M % 32 == 0, laid out K-major once per call); CPU
-    tensors use the plain version."""
+    once per block: f32 reads the weights rounded to f32; bfloat16, which needs
+    M % 32 == 0, reads them K-major, from ``kmajor`` (the
+    :func:`kmajor_weights` of these weights, which the caller vouches for)
+    or laid out here on every call. CPU tensors use the plain version, which
+    reads only the weights as given."""
     bns = (bn1_inv, bn1_off, bn2_inv, bn2_off, bn3_inv, bn3_off)
     out_dtype = out_dtype or x.dtype
     _check(x, w1s, w2s, w3s, bns, out_dtype)
@@ -122,13 +151,15 @@ def fused_bottleneck_chain(x, w1s, w2s, w3s, bn1_inv, bn1_off, bn2_inv,
     cd = x.dtype
     b, h, w, c = x.shape
     depth, _, m = w1s.shape
-    if cd == torch.bfloat16 and m % 32:
-        raise ValueError(f"the bfloat16 kernel needs M % 32 == 0, got M {m}")
-    w1s, w2s, w3s = (t.to(cd).contiguous() for t in (w1s, w2s, w3s))
-    if cd == torch.bfloat16:  # K-major, as the kernel's wgmma reads them
-        w1s = w1s.transpose(1, 2).contiguous()
-        w2s = w2s.permute(0, 4, 1, 2, 3).reshape(depth, m, 9 * m).contiguous()
-        w3s = w3s.transpose(1, 2).contiguous()
+    if cd == torch.bfloat16:
+        if m % 32:
+            raise ValueError(f"the bfloat16 kernel needs M % 32 == 0, got M {m}")
+        if kmajor is None:
+            kmajor = kmajor_weights(w1s, w2s, w3s)
+        _check_kmajor(kmajor, w1s, x.device)
+        w1s, w2s, w3s = kmajor
+    else:
+        w1s, w2s, w3s = (t.to(cd).contiguous() for t in (w1s, w2s, w3s))
     bns = tuple(t.contiguous() for t in bns)
     src = x.contiguous()
     if b == 0:

@@ -12,7 +12,8 @@ each output pixel's nine taps as shifted rows of t1 (K = 9M, tap-major,
 96); phase 3 multiplies t2 by w3 and adds the residual, and writes only
 rows inside the image (the last tile row is ragged where H % TH != 0).
 Every product runs in passes of NB output channels over K in ring-stage
-chunks of 64. Here the same steps run as torch ops on bf16-valued f32
+chunks of 64, reading the weights in the kernel's K-major layout
+(``kmajor_weights``). Here the same steps run as torch ops on bf16-valued f32
 tensors, with an f32 matmul a k-step standing in for the tensor cores.
 
 Limits are chip_smoke.py's BLOCK_BF16_LIMITS for the kernel against the
@@ -26,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from tdnet_torch.ops.block import fused_bottleneck_chain_plain
+from tdnet_torch.ops.block import fused_bottleneck_chain_plain, kmajor_weights
 
 torch.set_num_threads(1)  # tier-1 runs several xdist workers
 
@@ -72,7 +73,8 @@ def _tiled_block(x, weights, th, nb, mask_t1=True):
     w1, w2, w3, i1, o1, i2, o2, i3, o3 = weights
     b, h, w, c = x.shape
     m = w1.shape[1]
-    w2 = w2.reshape(9 * m, m)
+    # (K, N) views of the kernel's K-major weight rows
+    w1, w2, w3 = (t[0].float().t() for t in kmajor_weights(w1[None], w2[None], w3[None]))
     win_h, win = th + 2, (th + 2) * (TILE_W + 2)
     rows1 = -(-win // 64) * 64  # phase 1's A rows: whole 64-row warp blocks
     out = torch.full_like(x, float("nan"))
@@ -162,3 +164,19 @@ def test_tile_decomposition_matches_pallas_interpret():
     want = torch.from_numpy(np.array(want.astype(jnp.float32)))
     got = _tiled_block(x, weights, th, nb)
     assert _ok(_readings(got, want)), _readings(got, want)
+
+
+def test_kmajor_weights_layout():
+    """kmajor_weights puts w[.., k, n] at row n, column k, with conv2's K
+    ordered (dy, dx, input channel): the order of phase 2's taps above."""
+    d, c, m = 2, 64, 32
+    r = np.random.RandomState(3)
+    w1s, w2s, w3s = (torch.from_numpy(r.standard_normal(s).astype(np.float32))
+                     for s in ((d, c, m), (d, 3, 3, m, m), (d, m, c)))
+    k1, k2, k3 = kmajor_weights(w1s, w2s, w3s)
+    assert [t.dtype for t in (k1, k2, k3)] == [torch.bfloat16] * 3
+    assert all(t.is_contiguous() for t in (k1, k2, k3))
+    assert torch.equal(k1, w1s.to(torch.bfloat16).transpose(1, 2))
+    assert torch.equal(k3, w3s.to(torch.bfloat16).transpose(1, 2))
+    for dy, dx, ci, n in [(0, 0, 0, 0), (1, 2, 5, 31), (2, 1, 31, 7)]:
+        assert k2[1, n, (dy * 3 + dx) * m + ci] == w2s[1, dy, dx, ci, n].to(torch.bfloat16)

@@ -293,6 +293,10 @@ def test_cuda_block_chain_equals_plain(cuda, dtype, depth, h, w, c, m):
     if dtype == torch.float32:
         np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-5)
         return
+    _assert_bf16_block_limits(got, want)
+
+
+def _assert_bf16_block_limits(got, want):
     d = np.abs(got - want)
     big = np.maximum(np.abs(got), np.abs(want))
     within = (d <= _bf16_ulp(big)) | (d <= 1e-5)
@@ -304,12 +308,15 @@ def test_cuda_block_chain_equals_plain(cuda, dtype, depth, h, w, c, m):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,c,m,tile_h,pass_n", [
     (1, 20, 24, 128, 32, 16, 32), (3, 13, 16, 256, 64, 16, 64),
-    (2, 9, 16, 2048, 512, 8, 128)])
+    (2, 9, 16, 2048, 512, 8, 128), (16, 32, 32, 2048, 512, 8, 128)])
 def test_cuda_block_bf16_tiles_and_reruns(cuda, b, h, w, c, m, tile_h, pass_n):
     """The bf16 kernel's launch (tile height, pass width, one block an SM,
-    a persistent grid no larger than the tiles) at ragged heights, and two
-    runs on the same input bit-equal (tiles in a fixed order)."""
-    from tdnet_torch.ops.block import launch_info
+    a persistent grid no larger than the tiles) at ragged heights and at
+    config 4's stage 5 (256 tiles: the grid wraps), two runs on the same
+    input bit-equal (tiles in a fixed order), the same output from weights
+    laid out by the caller (``kmajor``), and BLOCK_BF16_LIMITS against the
+    plain version."""
+    from tdnet_torch.ops.block import kmajor_weights, launch_info
 
     info = launch_info(b, h, w, c, m)
     assert (info["tile_h"], info["pass_n"]) == (tile_h, pass_n), info
@@ -319,7 +326,22 @@ def test_cuda_block_bf16_tiles_and_reruns(cuda, b, h, w, c, m, tile_h, pass_n):
     x = x[:1].expand(b, h, w, c).contiguous()
     first = fused_bottleneck_chain(x, *args)
     assert torch.equal(first, fused_bottleneck_chain(x, *args))
+    assert torch.equal(first, fused_bottleneck_chain(x, *args, kmajor=kmajor_weights(*args[:3])))
     assert torch.equal(first[0], first[-1])  # each image alone, whatever its tiles' blocks
+    want = fused_bottleneck_chain_plain(x[:1], *args).float().cpu().numpy()
+    _assert_bf16_block_limits(first[:1].float().cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_block_bf16_kmajor_layout_checked(cuda):
+    """Weights passed as ``kmajor`` in another layout raise."""
+    from tdnet_torch.ops.block import kmajor_weights
+
+    x, args = _block_inputs(cuda, torch.bfloat16, 1, 16, 16, 128, 32)
+    k1, k2, k3 = kmajor_weights(*args[:3])
+    for bad in ((k1.transpose(1, 2), k2, k3), (k1, k2.float(), k3), (k1, k2, k3.cpu())):
+        with pytest.raises(ValueError, match="kmajor"):
+            fused_bottleneck_chain(x, *args, kmajor=bad)
 
 
 @pytest.mark.cuda

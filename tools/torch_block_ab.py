@@ -9,7 +9,7 @@ parent):
         --out build/block_ab/change_1.json
 
 It imports ``tdnet_torch`` from ``--root`` (so each checkout builds and
-runs its own kernels) and its timing helpers from this checkout's
+runs its own kernels) and its helpers from this checkout's
 ``chip_smoke.py``, and measures, with inputs and weights made on the
 device from seed 0 (the same for every checkout):
 
@@ -17,41 +17,34 @@ device from seed 0 (the same for every checkout):
   shapes at batch 16 (ResNet-101 at 1024x1024: stages 2-5, H = W 256 to
   32, C 256 to 2048, M 64 to 512): medians of 20 CUDA-event timings of 10
   calls in a row (so the wrapper's host work does not show), with the bound
-  (``chip_smoke.block_bound``), and a checksum of the output;
+  (``chip_smoke.block_bound``), and the SHA-256 of the output's bytes
+  (equal digests across checkouts: bit-equal outputs);
 - config 4's dispatch: ``Predictor.predict_batch`` (ResNet-101, bf16,
   ``block_kernel=True``, 16 pages at the 1024x1024 bucket), 3 timed
   batches (dispatch_s and host_prep_s a batch), and one batch under
-  ``torch.profiler``: the device's busy time and the block kernel's
-  summed device time.
+  ``torch.profiler`` (``chip_smoke.device_profile``): the device's busy
+  time, the block kernel's summed device time and the kernels with the
+  most device time.
 
-Prints one JSON line (with ``nvidia-smi``'s name and power limit) and
-writes it to ``--out``. Exits non-zero without a GPU. Imports nothing of
-JAX.
+Prints chip_smoke.py's device line, then one JSON line (with
+``nvidia-smi``'s name and power limit), which it also writes to
+``--out``. Exits non-zero without a GPU. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
+import hashlib
 import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+from _torch_chip import load_chip_smoke, use_checkout
+
 # config 4 (ResNet-101 at 1024^2): (stage, H = W, C, M)
 STAGES = [(2, 256, 256, 64), (3, 128, 512, 128), (4, 64, 1024, 256), (5, 32, 2048, 512)]
 BATCH = 16
-
-
-def _load_chip_smoke():
-    """This checkout's chip_smoke.py, for its timing helpers (they import
-    nothing of the package under test)."""
-    spec = importlib.util.spec_from_file_location("chip_smoke_ab", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def main() -> int:
@@ -62,22 +55,13 @@ def main() -> int:
     ap.add_argument("--no-r101", action="store_true", help="kernel times only")
     args = ap.parse_args()
     root = Path(args.root).resolve()
-    cs = _load_chip_smoke()
-    sys.path.insert(0, str(root))
+    cs = load_chip_smoke()
+    use_checkout(root)
 
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("torch_block_ab: no CUDA GPU", file=sys.stderr)
-        return 2
-    import tdnet_torch
-
-    if not Path(tdnet_torch.__file__).resolve().is_relative_to(root):
-        raise RuntimeError(f"tdnet_torch came from {tdnet_torch.__file__}, not {root}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip()
+    smi = cs.phase_device()  # raises without a GPU
     from tdnet_torch import _build
     from tdnet_torch.ops import block
 
@@ -103,6 +87,7 @@ def main() -> int:
         res["stages"].append({
             "stage": stage, "shape": [BATCH, hw, hw, c], "cmid": m, "ms": ms,
             "tflops": flops / ms / 1e9, "bound_ms": bound_ms,
+            "sha256": hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
             "checksum": out.float().sum().item()})
         print(json.dumps(res["stages"][-1]), flush=True)
         del x, w, out
@@ -141,7 +126,8 @@ def main() -> int:
                                    "block_ms": prof["matched_ms"],
                                    "block_kernels": prof["matched_kernels"],
                                    "block_share_of_busy":
-                                       prof["matched_ms"] / prof["device_busy_ms"]}}
+                                       prof["matched_ms"] / prof["device_busy_ms"],
+                                   "top_kernels_ms": prof["top_kernels_ms"]}}
     line = json.dumps(res)
     print(line, flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

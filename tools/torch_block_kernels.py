@@ -21,32 +21,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
-import tempfile
 import traceback
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-
-
-def ptxas_report(src: str) -> int:
-    """Compile one source with -Xptxas -v; print the lines about each
-    kernel's resources. Returns nvcc's exit code."""
-    from tdnet_torch import _build
-
-    with tempfile.TemporaryDirectory() as tmp:
-        r = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-             "-I", str(_build._CSRC), "-c", str(_build._CSRC / src),
-             "-o", str(Path(tmp) / "k.o")],
-            capture_output=True, text=True)
-    print(f"{src}: nvcc exit {r.returncode}")
-    for line in (r.stdout + r.stderr).splitlines():
-        if any(k in line for k in ("Compiling entry", "registers", "spill",
-                                   "smem", "error", "warning")):
-            print("  " + line.strip())
-    return r.returncode
+from _torch_chip import ROOT, ptxas_report
 
 
 def main() -> int:

@@ -7,9 +7,9 @@ run. Run it in turns from one call (parent, change, change, parent):
     python3 tools/torch_stem_ab.py --root . --label change \\
         --out build/stem_ab/change_1.json
 
-It imports ``tdnet_torch`` and ``chip_smoke.py``'s helpers from ``--root``
-(so each checkout builds and runs its own kernels) and measures, with
-random weights from seed 0:
+It imports ``tdnet_torch`` from ``--root`` (so each checkout builds and
+runs its own kernels) and its helpers from this checkout's
+``chip_smoke.py``, and measures, with random weights from seed 0:
 
 - B1 ``fused_stem_packed`` bf16 at (16, 800, 1344*3) and B4
   ``fused_stem_bwd_packed`` bf16 at (8, 800, 1344*3): CUDA-event medians
@@ -23,63 +23,21 @@ random weights from seed 0:
   16 landscape pages (one 800x1344 bucket), 3 timed batches: dispatch_s
   and host_prep_s a batch; and a profiler window of one batch.
 
-Prints one JSON line (with ``nvidia-smi``'s name and power limit) and
-writes it to ``--out``. Exits non-zero without a GPU. Imports nothing of
+Prints chip_smoke.py's device line, then one JSON line (with
+``nvidia-smi``'s name and power limit), which it also writes to ``--out``. Exits non-zero without a GPU. Imports nothing of
 JAX.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-
-def _load_chip_smoke(root: Path):
-    sys.path.insert(0, str(root))
-    spec = importlib.util.spec_from_file_location("chip_smoke_ab", root / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _profile(fn, steps: int):
-    """Run fn `steps` times under torch.profiler: (wall s, busy s: the
-    union of the device's kernel and copy intervals, the 8 kernels with the
-    most device time as [name, ms])."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    spans, by_name = [], {}
-    for e in prof.events():
-        # kernels and copies only: a user annotation's device span (the
-        # optimizer's record_function) covers the gaps between its kernels
-        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-            continue
-        a, b = e.time_range.start, e.time_range.end
-        spans.append((a, b))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
-    spans.sort()
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:  # union of the kernels' intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return wall, busy_us / 1e6, [[n[:80], round(ms, 4)] for n, ms in top]
+from _torch_chip import load_chip_smoke, use_checkout
 
 
 def main() -> int:
@@ -89,23 +47,13 @@ def main() -> int:
     ap.add_argument("--out", required=True)
     args = ap.parse_args()
     root = Path(args.root).resolve()
-    cs = _load_chip_smoke(root)
+    cs = load_chip_smoke()
+    use_checkout(root)
 
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("torch_stem_ab: no CUDA GPU", file=sys.stderr)
-        return 2
-    import tdnet_torch
-
-    if not Path(tdnet_torch.__file__).resolve().is_relative_to(root):
-        raise RuntimeError(f"tdnet_torch came from {tdnet_torch.__file__}, not {root}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = cs.phase_device()  # raises without a GPU; TF32 off
     from tdnet_torch import _build
 
     _build.build(force=True)
@@ -148,10 +96,12 @@ def main() -> int:
         step(state, batch)
     torch.cuda.synchronize()
     res["train_step_ms"] = (time.monotonic() - t0) / 10 * 1e3
-    wall, busy, top = _profile(lambda: step(state, batch), 3)
-    res["train_profile"] = {"steps": 3, "wall_ms_per_step": wall / 3 * 1e3,
-                            "device_busy_ms_per_step": busy / 3 * 1e3,
-                            "device_busy_share": busy / wall, "top_kernels_ms": top}
+    prof = cs.device_profile(lambda: step(state, batch), steps=3)
+    busy_s = prof["device_busy_ms"] / 1e3
+    res["train_profile"] = {"steps": 3, "wall_ms_per_step": prof["wall_s"] / 3 * 1e3,
+                            "device_busy_ms_per_step": prof["device_busy_ms"] / 3,
+                            "device_busy_share": busy_s / prof["wall_s"],
+                            "top_kernels_ms": prof["top_kernels_ms"]}
     del state, step, batch, model
     torch.cuda.empty_cache()
 
@@ -169,9 +119,9 @@ def main() -> int:
     res["predict"] = {"pages": 16, "dispatch_s": disp, "host_prep_s": prep,
                       "dispatch_s_median": statistics.median(disp),
                       "host_prep_s_median": statistics.median(prep)}
-    wall, busy, top = _profile(lambda: pred.predict_batch(pages), 1)
-    res["predict_profile"] = {"wall_s": wall, "device_busy_ms": busy * 1e3,
-                              "top_kernels_ms": top}
+    prof = cs.device_profile(lambda: pred.predict_batch(pages))
+    res["predict_profile"] = {k: prof[k] for k in ("wall_s", "device_busy_ms",
+                                                   "top_kernels_ms")}
     line = json.dumps(res)
     print(line, flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -6,7 +6,7 @@ chip_smoke.py's kernels phase.
 
 Compiles ``tdnet_torch/csrc/stem.cu`` and ``stem_bwd.cu`` with the port's
 nvcc flags and ``-Xptxas -v`` and prints each kernel's registers, stack
-frame and spills; then builds the kernel library and runs
+frame, spills and shared memory; then builds the kernel library and runs
 ``chip_smoke.phase_kernels`` (every kernel against its plain version at
 the main paths' shapes, with times; one JSON line). A first check of a
 kernel change before the whole ``chip_smoke.py``. Exits non-zero without a
@@ -15,13 +15,10 @@ GPU or on a failed check.
 
 from __future__ import annotations
 
-import subprocess
 import sys
-import tempfile
 import traceback
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+from _torch_chip import ROOT, ptxas_report
 
 
 def main() -> int:
@@ -29,23 +26,11 @@ def main() -> int:
     import chip_smoke as cs
     import torch
 
-    from tdnet_torch import _build
-
     try:
         print(cs.phase_device(), flush=True)
-        with tempfile.TemporaryDirectory() as tmp:
-            for src in ("stem.cu", "stem_bwd.cu"):
-                r = subprocess.run(
-                    [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-                     "-I", str(_build._CSRC), "-c", str(_build._CSRC / src),
-                     "-o", str(Path(tmp) / "k.o")],
-                    capture_output=True, text=True)
-                print(f"{src}: nvcc exit {r.returncode}")
-                for line in (r.stdout + r.stderr).splitlines():
-                    if any(k in line for k in ("Compiling entry", "registers", "spill", "error")):
-                        print("  " + line.strip())
-                if r.returncode != 0:
-                    return 1
+        for src in ("stem.cu", "stem_bwd.cu"):
+            if ptxas_report(src) != 0:
+                return 1
         cs.phase_build()
         cs.phase_kernels(torch.device("cuda"))
     except Exception:
