@@ -63,7 +63,12 @@ N_LANDSCAPE, N_PORTRAIT = 12, 4
 PAGE_LANDSCAPE, PAGE_PORTRAIT = (850, 1400), (1100, 850)  # -> 800x1318, 1035x800
 INGEST_ROWS = 16 * 1050               # 16 canvases of 800x1344 as 3072-byte rows
 STEM_SHAPES = [(16, 800, 1344 * 3), (16, 1344, 800 * 3)]
-NMS_ROWS, NMS_K = 16, 1024
+# B2 (R, K): config 1's batch of 16 pages, then bench.py's batch of 128;
+# one row class a page. Also checked: 4 rows of a ragged K (the last 64-box
+# word is partial). Timed in bursts of 10 calls (device time, not host).
+NMS_SHAPES = [(16, 1024), (128, 1024)]
+NMS_RAGGED_K = 1000
+NMS_BURST = 10
 BF16_WITHIN_ULP_MIN = 0.999           # share of bf16 stem outputs within 1 ulp
 # (the control, the plain version with the weights left in f32, must fall
 # below it; the kernels phase reports its share)
@@ -71,7 +76,9 @@ STEM_BWD_SHAPE = (8, 800, 1344 * 3)   # the train phase's batch
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 20, 3e-4
 TRAIN_PAGE = (800, 1300)              # resize scale 1.0 -> bucket 800x1344
 PARITY_SIDES, PARITY_PAGE = (256, 384), (256, 384)
-SOFT_ROWS, SOFT_K, SOFT_PICKS = 48, 1024, 300  # config 5: 16 pages x 3 classes
+# B5 (R, K): config 5's 16 pages x 3 classes, then 128 pages x 3
+SOFT_SHAPES = [(48, 1024), (384, 1024)]
+SOFT_PICKS = 300
 SOFT_SIGMA = 0.5
 # config 4 at batch 4: (stage, H = W, C, M, chain depth)
 BLOCK_STAGES = [(2, 256, 256, 64, 2), (3, 128, 512, 128, 3),
@@ -289,7 +296,7 @@ def phase_kernels(dev):
     import numpy as np
     import torch
 
-    from tdnet_torch.ops import ingest, nms_kernel, stem
+    from tdnet_torch.ops import ingest, stem
     from tdnet_torch.ops.stem_vjp import stem_reference_packed
 
     rng = np.random.RandomState(SEED)
@@ -368,35 +375,7 @@ def phase_kernels(dev):
     results["stem"]["max_abs_err"] = stem_err
     results["stem"]["checks"] = stem_info
 
-    # ---- nms: clustered candidates, invalid slots, exact keep masks
-    centres = rng.uniform(0, 1344, (NMS_ROWS, 12, 2))
-    pick = rng.randint(0, 12, (NMS_ROWS, NMS_K))
-    c = np.take_along_axis(centres, pick[..., None], axis=1) \
-        + rng.normal(0, 12, (NMS_ROWS, NMS_K, 2))
-    wh = rng.uniform(20, 300, (NMS_ROWS, NMS_K, 2))
-    boxes = torch.from_numpy(np.concatenate([c - wh / 2, c + wh / 2], -1)
-                             .astype(np.float32)).to(dev)
-    valid_np = rng.uniform(size=(NMS_ROWS, NMS_K)) > 0.05
-    valid_np[:, -100:] = False  # the below-threshold tail of a top-k row
-    valid = torch.from_numpy(valid_np).to(dev)
-    got = nms_kernel.nms_keep(boxes, valid, 0.5)
-    want = nms_kernel.nms_keep_plain(boxes, valid, 0.5)
-    mism = int((got != want).sum().item())
-    require(mism == 0, f"nms keep masks differ in {mism} slots")
-    require(0 < int(want.sum().item()) < int(valid.sum().item()),
-            "nms test rows kept nothing or suppressed nothing")
-    results["nms"] = {
-        "max_abs_err": (got.float() - want.float()).abs().max().item(),
-        "mismatched_slots": mism,
-        "kept": int(got.sum().item()), "valid": int(valid.sum().item()),
-        "ms": median_ms(lambda: nms_kernel.nms_keep(boxes, valid, 0.5)),
-        "plain_ms": median_ms(lambda: nms_kernel.nms_keep_plain(boxes, valid, 0.5)),
-        "shape": [NMS_ROWS, NMS_K],
-        # this run's work: each kept box against every later box of its row
-        "bound": bound(boxes.numel() * 4 + 2 * valid.numel(),
-                       IOU_OPS * nms_pairs(got), "f32")}
-    del boxes, valid, got, want
-
+    results["nms"] = check_nms(dev, rng)
     results["stem_bwd"] = check_stem_bwd(dev, rng, k7, inv, off)
     results["soft_nms"] = check_soft_nms(dev, rng)
     results["block"] = check_block(dev, rng)
@@ -405,68 +384,168 @@ def phase_kernels(dev):
     return results
 
 
-def check_soft_nms(dev, rng):
-    """The soft-NMS kernel vs its plain version at config 5's rows: 48 rows
-    of 1024 clustered candidates with a 100-slot below-threshold tail (as
-    the deferred tail hands them over: score 0), the last row's second half
-    an exact copy of its first (exact ties: the lowest index is picked
-    first; linear decay reaches 0 at IoU 1), gaussian sigma 0.5 and linear
-    at IoU 0.3, 300 picks. Tolerance: rtol 1e-5, atol 1e-6 (the reference's,
-    tests/ops/test_soft_nms.py); rows whose set of selected boxes differs:
-    0."""
+def clustered_boxes(rng, r, k):
+    """(r, k, 4) float32 candidates clustered around 12 centres a row on an
+    800x1344 page, sizes 20-300 px."""
     import numpy as np
+
+    centres = rng.uniform(0, 1344, (r, 12, 2))
+    pick = rng.randint(0, 12, (r, k))
+    c = np.take_along_axis(centres, pick[..., None], axis=1) \
+        + rng.normal(0, 12, (r, k, 2))
+    wh = rng.uniform(20, 300, (r, k, 2))
+    return np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+
+
+def nms_rows(rng, r, k):
+    """Score-sorted rows of clustered candidates with 5% invalid slots and
+    a 100-slot invalid tail (the below-threshold end of a top-k row): numpy
+    boxes (r, k, 4) float32 and valid (r, k) bool."""
+    boxes = clustered_boxes(rng, r, k)
+    valid = rng.uniform(size=(r, k)) > 0.05
+    valid[:, -100:] = False
+    return boxes, valid
+
+
+def nms_inputs(rng):
+    """{(R, K): (boxes, valid)} for B2: NMS_SHAPES[0] from `rng`, the other
+    shapes from seed SEED + 1, and 4 rows of NMS_RAGGED_K: clustered, all
+    invalid, 8 boxes repeated exactly (all valid), clustered."""
+    import numpy as np
+
+    inputs = {NMS_SHAPES[0]: nms_rows(rng, *NMS_SHAPES[0])}
+    other = np.random.RandomState(SEED + 1)
+    for shape in NMS_SHAPES[1:]:
+        inputs[shape] = nms_rows(other, *shape)
+    boxes, valid = nms_rows(other, 4, NMS_RAGGED_K)
+    valid[1] = False
+    boxes[2] = np.tile(boxes[2, :8], (NMS_RAGGED_K // 8, 1))
+    valid[2] = True
+    inputs[(4, NMS_RAGGED_K)] = (boxes, valid)
+    return inputs
+
+
+def check_nms(dev, rng):
+    """The NMS kernel vs its plain version on `nms_inputs`: keep masks
+    exact (0 mismatched slots), and each input keeps something and
+    suppresses something (0 < kept < valid). Timed at NMS_SHAPES in bursts
+    of NMS_BURST calls; the bound counts this run's work, each kept box
+    against every later box of its row (the greedy walk's pairs)."""
+    import torch
+
+    from tdnet_torch.ops import nms_kernel
+
+    checks, timed, worst = [], [], 0.0
+    for (r, k), (b_np, v_np) in nms_inputs(rng).items():
+        boxes = torch.from_numpy(b_np).to(dev)
+        valid = torch.from_numpy(v_np).to(dev)
+        got = nms_kernel.nms_keep(boxes, valid, 0.5)
+        want = nms_kernel.nms_keep_plain(boxes, valid, 0.5)
+        mism = int((got != want).sum().item())
+        kept, n_valid = int(want.sum().item()), int(valid.sum().item())
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        checks.append({"shape": [r, k], "mismatched_slots": mism,
+                       "kept": int(got.sum().item()), "valid": n_valid})
+        require(mism == 0, f"nms {r}x{k}: keep masks differ in {mism} slots")
+        require(0 < kept < n_valid,
+                f"nms {r}x{k}: kept {kept} of {n_valid} valid: nothing kept "
+                f"or nothing suppressed")
+        if (r, k) in NMS_SHAPES:
+            timed.append({
+                "shape": [r, k],
+                "ms": median_ms(lambda: nms_kernel.nms_keep(boxes, valid, 0.5),
+                                burst=NMS_BURST),
+                "plain_ms": median_ms(
+                    lambda: nms_kernel.nms_keep_plain(boxes, valid, 0.5), iters=5),
+                "bound": bound(boxes.numel() * 4 + 2 * valid.numel(),
+                               IOU_OPS * nms_pairs(got), "f32")})
+        del boxes, valid, got, want
+    return {"max_abs_err": worst, **timed[0], "batch_128": timed[1],
+            "checks": checks}
+
+
+def soft_rows(rng, r, k):
+    """Soft-NMS rows as the deferred tail hands them over: clustered
+    candidates, scores sorted descending with a 100-slot tail at 0 (below
+    the threshold), and the last row's second half an exact copy of its
+    first (exact ties: the lowest index is picked first; linear decay
+    reaches 0 at IoU 1). numpy boxes (r, k, 4) and scores (r, k), float32."""
+    import numpy as np
+
+    boxes = clustered_boxes(rng, r, k)
+    scores = np.sort(rng.uniform(0.05, 1.0, (r, k)), axis=1)[:, ::-1].astype(np.float32)
+    scores[:, -100:] = 0.0
+    boxes[-1, k // 2:] = boxes[-1, :k // 2]
+    scores[-1, k // 2:] = scores[-1, :k // 2]
+    return boxes, np.ascontiguousarray(scores)
+
+
+def soft_inputs(rng):
+    """{(R, K): (boxes, scores)} for B5: SOFT_SHAPES[0] from `rng`, the
+    others from seed SEED + 2."""
+    import numpy as np
+
+    inputs = {SOFT_SHAPES[0]: soft_rows(rng, *SOFT_SHAPES[0])}
+    other = np.random.RandomState(SEED + 2)
+    for shape in SOFT_SHAPES[1:]:
+        inputs[shape] = soft_rows(other, *shape)
+    return inputs
+
+
+def check_soft_nms(dev, rng):
+    """The soft-NMS kernel vs its plain version on `soft_inputs` (config
+    5's 48 rows and 128 pages' 384), gaussian sigma 0.5 and linear at IoU
+    0.3, 300 picks. Tolerance: rtol 1e-5, atol 1e-6 (the reference's,
+    tests/ops/test_soft_nms.py); rows whose set of selected boxes differs:
+    0; the duplicate row picks the lower index first. Gaussian timed at
+    each shape in bursts of NMS_BURST calls."""
     import torch
 
     from tdnet_torch.ops import soft_nms
 
-    r, k = SOFT_ROWS, SOFT_K
-    centres = rng.uniform(0, 1344, (r, 12, 2))
-    pick = rng.randint(0, 12, (r, k))
-    c = np.take_along_axis(centres, pick[..., None], axis=1) + rng.normal(0, 12, (r, k, 2))
-    wh = rng.uniform(20, 300, (r, k, 2))
-    boxes_np = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
-    scores_np = np.sort(rng.uniform(0.05, 1.0, (r, k)), axis=1)[:, ::-1].astype(np.float32)
-    scores_np[:, -100:] = 0.0
-    boxes_np[-1, k // 2:] = boxes_np[-1, :k // 2]
-    scores_np[-1, k // 2:] = scores_np[-1, :k // 2]
-    boxes = torch.from_numpy(boxes_np).to(dev)
-    scores = torch.from_numpy(np.ascontiguousarray(scores_np)).to(dev)
-    checks, worst = [], 0.0
-    for method in ("gaussian", "linear"):
-        kw = dict(method=method, sigma=SOFT_SIGMA, iou_threshold=0.3,
-                  max_selections=SOFT_PICKS)
-        got = soft_nms.soft_nms_rescore_batched(boxes, scores, **kw)
-        want = soft_nms.soft_nms_rescore_plain(boxes, scores, **kw)
-        require(torch.isfinite(got).all().item(), f"soft_nms {method}: non-finite")
-        d = (got - want).abs()
-        err = d.max().item()
-        worst = max(worst, err)
-        rows_differ = int(((got > 0) != (want > 0)).any(dim=1).sum().item())
-        picked = int((want > 0).sum().item())
-        checks.append({"method": method, "max_abs_err": err,
-                       "rows_with_other_selections": rows_differ,
-                       "selected": picked,
-                       "decayed_before_pick": int(((want > 0) & (want < scores)).sum().item())})
-        require(bool((d <= 1e-6 + 1e-5 * want.abs()).all().item()),
-                f"soft_nms {method}: beyond rtol 1e-5 / atol 1e-6 (max {err})")
-        require(rows_differ == 0, f"soft_nms {method}: {rows_differ} rows select other boxes")
-        dup = got[-1].cpu().numpy()
-        require(dup[0] > 0 and dup[k // 2] < dup[0],
-                f"soft_nms {method}: the tie rule did not pick the lower index first")
-        if method == "gaussian":
-            picks_per_row = (want > 0).sum(dim=1)
-            valid = (scores > 0.001).sum(dim=1)
-            # each pick decays every remaining (finite) candidate of its row
-            steps = sum(int(vr) * int(pr) - int(pr) * (int(pr) + 1) // 2
-                        for vr, pr in zip(valid.tolist(), picks_per_row.tolist()))
-            timed = {
-                "ms": median_ms(lambda: soft_nms.soft_nms_rescore_batched(boxes, scores, **kw)),
-                "plain_ms": median_ms(lambda: soft_nms.soft_nms_rescore_plain(
-                    boxes, scores, **kw), iters=5),
-                "bound": bound(boxes.numel() * 4 + 2 * scores.numel() * 4,
-                               SOFT_OPS * steps, "f32")}
-    return {"max_abs_err": worst, **timed, "shape": [r, k], "picks": SOFT_PICKS,
-            "checks": checks}
+    checks, timed, worst = [], [], 0.0
+    for (r, k), (b_np, s_np) in soft_inputs(rng).items():
+        boxes = torch.from_numpy(b_np).to(dev)
+        scores = torch.from_numpy(s_np).to(dev)
+        for method in ("gaussian", "linear"):
+            kw = dict(method=method, sigma=SOFT_SIGMA, iou_threshold=0.3,
+                      max_selections=SOFT_PICKS)
+            got = soft_nms.soft_nms_rescore_batched(boxes, scores, **kw)
+            want = soft_nms.soft_nms_rescore_plain(boxes, scores, **kw)
+            name = f"soft_nms {r}x{k} {method}"
+            require(torch.isfinite(got).all().item(), f"{name}: non-finite")
+            d = (got - want).abs()
+            err = d.max().item()
+            worst = max(worst, err)
+            rows_differ = int(((got > 0) != (want > 0)).any(dim=1).sum().item())
+            checks.append({"shape": [r, k], "method": method, "max_abs_err": err,
+                           "rows_with_other_selections": rows_differ,
+                           "selected": int((want > 0).sum().item()),
+                           "decayed_before_pick":
+                               int(((want > 0) & (want < scores)).sum().item())})
+            require(bool((d <= 1e-6 + 1e-5 * want.abs()).all().item()),
+                    f"{name}: beyond rtol 1e-5 / atol 1e-6 (max {err})")
+            require(rows_differ == 0, f"{name}: {rows_differ} rows select other boxes")
+            dup = got[-1].cpu().numpy()
+            require(dup[0] > 0 and dup[k // 2] < dup[0],
+                    f"{name}: the tie rule did not pick the lower index first")
+            if method == "gaussian":
+                picks_per_row = (want > 0).sum(dim=1)
+                valid = (scores > 0.001).sum(dim=1)
+                # each pick decays every remaining (finite) candidate of its row
+                steps = sum(int(vr) * int(pr) - int(pr) * (int(pr) + 1) // 2
+                            for vr, pr in zip(valid.tolist(), picks_per_row.tolist()))
+                timed.append({
+                    "shape": [r, k],
+                    "ms": median_ms(lambda: soft_nms.soft_nms_rescore_batched(
+                        boxes, scores, **kw), burst=NMS_BURST),
+                    "plain_ms": median_ms(lambda: soft_nms.soft_nms_rescore_plain(
+                        boxes, scores, **kw), iters=5),
+                    "bound": bound(boxes.numel() * 4 + 2 * scores.numel() * 4,
+                                   SOFT_OPS * steps, "f32")})
+        del boxes, scores, got, want, d
+    return {"max_abs_err": worst, **timed[0], "batch_128": timed[1],
+            "picks": SOFT_PICKS, "checks": checks}
 
 
 def _chain_inputs(rng, dev, depth, hw, c, m, batch):
@@ -1960,7 +2039,8 @@ def main() -> int:
         "conv1x1": ("tdnet_torch/csrc/conv1x1.cu", "tdnet/ops/pallas_conv.py:108"),
     }
     # library_ms: no single PyTorch call computes ingest (normalize +
-    # round), nms or soft_nms (null); for stem it is the port's unfused
+    # round), nms or soft_nms (null; nms and soft_nms also report their
+    # times at bench.py's batch of 128 pages); for stem it is the port's unfused
     # path (stem_reference_packed: the normalize kernel, cuDNN bf16 conv,
     # BN, ReLU, pool), for stem_bwd that path's autograd backward with its
     # forward (the "remat" route), for block the unfused path on the same
@@ -1974,6 +2054,13 @@ def main() -> int:
          "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"],
          "bound_ms": kres[name]["bound"][0], "bound_by": kres[name]["bound"][1],
          "library_ms": kres[name].get("library_ms"),
+         **({"batch_128": {"shape": kres[name]["batch_128"]["shape"],
+                           "ms": kres[name]["batch_128"]["ms"],
+                           "plain_ms": kres[name]["batch_128"]["plain_ms"],
+                           "bound_ms": kres[name]["batch_128"]["bound"][0],
+                           "bound_by": kres[name]["batch_128"]["bound"][1],
+                           "library_ms": None}}
+            if "batch_128" in kres[name] else {}),
          **({"note": "no path runs it: wired into no model, in the JAX package too"}
             if name == "conv1x1" else {})}
         for name, (src, rep) in sources.items()]})

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "tdnet_normalize_u8": [_P, _P, ctypes.c_int64, _I, _F, _F, _F, _F, _P],
     "tdnet_fused_stem": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
                          _I, _P],
-    "tdnet_nms_keep": [_P, _P, _P, _I, _I, _F, _P],
+    "tdnet_nms_keep": [_P, _P, _P, _P, _I, _I, _F, _P],
     "tdnet_fused_stem_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                              _F, _F, _I, _I, _P],
     "tdnet_fused_stem_bwd_pooled": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

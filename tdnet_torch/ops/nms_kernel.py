@@ -8,9 +8,10 @@ kept higher-ranked box has exact IoU above the threshold (strict >; IoU 0
 where the union is <= 0). Invalid boxes are never kept and suppress
 nothing. Unlike the TPU kernel, K need not be a multiple of 128.
 
-The CUDA kernel is in ``csrc/nms.cu``; :func:`nms_keep_plain` is the plain
-PyTorch version, the vectorized fixpoint of ``tdnet/ops/nms.py``
-``non_max_suppression`` in f32.
+The CUDA kernel is in ``csrc/nms.cu`` (an IoU bitmask pass over the card,
+then a scan of it with one warp a row; a call counts as one launch);
+:func:`nms_keep_plain` is the plain PyTorch version, the vectorized fixpoint
+of ``tdnet/ops/nms.py`` ``non_max_suppression`` in f32.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ from tdnet_torch.ops.boxes import box_iou
 __all__ = ["LAUNCHES", "nms_keep", "nms_keep_plain"]
 
 LAUNCHES = _build.LaunchCounter("nms")
-_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+# the scan stages two 64-box chunks of mask rows in one block's shared
+# memory: 2 * 64 * ceil(K / 64) * 8 bytes <= 232,448
+_MAX_K = 14336
 
 
 def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
@@ -74,17 +77,22 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
     if boxes.data_ptr() % 16:
         raise ValueError("nms_keep needs 16-byte aligned boxes")
     r, k, _ = boxes.shape
-    if k * 21 > _SMEM_LIMIT:
-        raise ValueError(f"K={k} boxes do not fit one block's shared memory")
+    if k > _MAX_K:
+        raise ValueError(f"K={k} boxes exceed the NMS kernel's limit of {_MAX_K}")
     keep = torch.empty((r, k), dtype=torch.bool, device=boxes.device)
     if r == 0 or k == 0:
         return keep
+    # the IoU bitmask the kernel's two passes share: one 64-bit word per box
+    # and 64-box block of later boxes, a row's words padded to even
+    row_words = k * -(-k // 64)
+    mask = torch.empty(r * (row_words + row_words % 2), dtype=torch.int64,
+                       device=boxes.device)
     lib = _build.library()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tdnet_nms_keep(boxes.data_ptr(), valid.data_ptr(),
-                                 keep.data_ptr(), r, k, float(iou_threshold),
-                                 stream)
+                                 keep.data_ptr(), mask.data_ptr(), r, k,
+                                 float(iou_threshold), stream)
     LAUNCHES.count += 1
     _build.check(err, "tdnet_nms_keep")
     return keep

@@ -30,6 +30,7 @@ __all__ = ["LAUNCHES", "soft_nms_rescore_batched", "soft_nms_rescore_plain"]
 LAUNCHES = _build.LaunchCounter("soft_nms")
 _METHODS = {"gaussian": 0, "linear": 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+_SLOTS_BYTES = 512     # the kernel's pick slots, beside the row's boxes
 
 
 def _check(boxes: torch.Tensor, scores: torch.Tensor, method: str) -> None:
@@ -104,7 +105,8 @@ def soft_nms_rescore_batched(boxes: torch.Tensor, scores: torch.Tensor,
                              score_threshold: float = 0.001,
                              max_selections: int = 300) -> torch.Tensor:
     """Rescored (R, K) scores. CUDA tensors launch the CUDA kernel (one
-    block per row); CPU tensors use the plain version."""
+    block per row, one thread per candidate up to K = 1024); CPU tensors use
+    the plain version."""
     _check(boxes, scores, method)
     if boxes.device.type == "cpu":
         return soft_nms_rescore_plain(boxes, scores, method, sigma,
@@ -115,7 +117,7 @@ def soft_nms_rescore_batched(boxes: torch.Tensor, scores: torch.Tensor,
     if boxes.data_ptr() % 16:
         raise ValueError("soft-NMS needs 16-byte aligned boxes")
     r, k = scores.shape
-    if k * 24 > _SMEM_LIMIT:
+    if k * 16 + _SLOTS_BYTES > _SMEM_LIMIT:
         raise ValueError(f"K={k} boxes do not fit one block's shared memory")
     out = torch.empty((r, k), dtype=torch.float32, device=boxes.device)
     if r == 0 or k == 0:

@@ -234,24 +234,39 @@ def test_cuda_stem_equals_plain(cuda, dtype, hw):
 
 
 @pytest.mark.cuda
-def test_cuda_nms_equals_plain(cuda):
+@pytest.mark.parametrize("k", [1024, 1000, 200, 64, 2112])
+def test_cuda_nms_equals_plain(cuda, k):
+    """K of whole and ragged 64-box words, and above 2048 (two removed
+    words a lane in the scan)."""
     rng = np.random.RandomState(9)
-    boxes = torch.from_numpy(_clustered_boxes(rng, 5, 1024, span=200.0)).to(cuda)
-    valid = torch.from_numpy(rng.uniform(size=(5, 1024)) > 0.1).to(cuda)
+    boxes = torch.from_numpy(_clustered_boxes(rng, 5, k, span=200.0)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=(5, k)) > 0.1).to(cuda)
     assert torch.equal(nms_keep(boxes, valid, 0.5),
                        nms_keep_plain(boxes, valid, 0.5))
 
 
 @pytest.mark.cuda
+def test_cuda_nms_and_soft_nms_limit_k(cuda):
+    boxes = torch.zeros((1, 14337, 4), device=cuda)
+    with pytest.raises(ValueError, match="limit"):
+        nms_keep(boxes, torch.ones((1, 14337), dtype=torch.bool, device=cuda))
+    boxes = torch.zeros((1, 14497, 4), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        soft_nms_rescore_batched(boxes, torch.ones((1, 14497), device=cuda))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("method", ["gaussian", "linear"])
-def test_cuda_soft_nms_equals_plain(cuda, method):
+@pytest.mark.parametrize("k", [1024, 2000])
+def test_cuda_soft_nms_equals_plain(cuda, method, k):
     """rtol 1e-5, atol 1e-6 (the reference's bound); the same boxes are
-    selected in every row; a row of exact duplicates stays finite."""
+    selected in every row; a row of exact duplicates stays finite. K 2000
+    takes two candidates a thread."""
     rng = np.random.RandomState(10)
-    boxes = _clustered_boxes(rng, 6, 1024, span=200.0)
-    boxes[5, 512:] = boxes[5, :512]  # exact duplicates (IoU 1)
-    scores = rng.uniform(0, 1, (6, 1024)).astype(np.float32)
-    scores[5, 512:] = scores[5, :512]
+    boxes = _clustered_boxes(rng, 6, k, span=200.0)
+    boxes[5, k // 2:] = boxes[5, :k // 2]  # exact duplicates (IoU 1)
+    scores = rng.uniform(0, 1, (6, k)).astype(np.float32)
+    scores[5, k // 2:] = scores[5, :k // 2]
     scores[:, -100:] = 0.0  # the below-threshold tail
     b, s = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
     kw = dict(method=method, sigma=0.5, iou_threshold=0.3, max_selections=300)
