@@ -16,6 +16,10 @@ with random weights made from a seed, RetinaNet at full width and depth
   -> ``make_train_step`` on the fused-stem route with its backward kernel,
   bf16, batch 8 at 800x1344, 20 steps on one batch), a checkpoint round
   trip, then one f32 step on CUDA against the same step on the CPU;
+- the train CLI (``tdnet_torch.bin.train``) on PNG pages with a CSV, bf16,
+  from a ``.tdn``, with per-epoch evaluation, snapshots and a bundle; a run
+  resumed from the epoch-1 snapshot against the unbroken one; the bundle
+  through the ``predict`` CLI;
 - multi-class soft-NMS inference (config 5: 3-class ResNet-50, bf16, the
   deferred tail's soft-NMS kernel in place of the NMS kernel), then
   CUDA-vs-CPU f32 detections;
@@ -77,6 +81,8 @@ STEM_BWD_SHAPE = (8, 800, 1344 * 3)   # the train phase's batch
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 20, 3e-4
 TRAIN_PAGE = (800, 1300)              # resize scale 1.0 -> bucket 800x1344
 PARITY_SIDES, PARITY_PAGE = (256, 384), (256, 384)
+# the train CLI: 4 pages at batch 2 (--steps 0: 2 steps an epoch), 2 epochs
+TRAIN_CLI_PAGES, TRAIN_CLI_BATCH, TRAIN_CLI_EPOCHS = 4, 2, 2
 # B5 (R, K): config 5's 16 pages x 3 classes, then 128 pages x 3
 SOFT_SHAPES = [(48, 1024), (384, 1024)]
 SOFT_PICKS = 300
@@ -1558,6 +1564,150 @@ def phase_train_parity(dev):
           "whole_grad_rel_fro": total, "tensors_compared": len(cg)})
 
 
+def phase_train_cli(dev):
+    """The train CLI in-process, as a user runs it: TRAIN_CLI_PAGES
+    synthetic table pages written as PNG with an annotations CSV, ``--bf16
+    --device-normalize`` at the 800/1333 sides, batch TRAIN_CLI_BATCH,
+    ``--steps 0`` (one pass an epoch), TRAIN_CLI_EPOCHS epochs, ``--weights``
+    a .tdn of smoke_variables, snapshots, JSONL metrics, ``--model-path``,
+    and ``--evaluation`` on two of the pages. Counters set to 0 just before
+    the run and read just after. Then a run resumed with ``--snapshot`` from
+    the epoch-1 snapshot: its final state (weights, BN statistics, Adam
+    moments, step, lr) must equal the unbroken run's bit for bit, so both
+    runs take PyTorch's deterministic algorithms (cuDNN's, and the FPN's
+    index_select backward without atomics) and the stem kernels sum in a
+    fixed order. Then the bundle through the predict CLI on one page (uint8,
+    the fused stem), counters set to 0 just before it."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from tdnet_torch.bin import predict, train
+    from tdnet_torch.data.image import write_image_bgr
+    from tdnet_torch.models.io import save_model
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.ops import stem
+
+    t_phase = time.monotonic()
+    work = ROOT / "build" / "chip_smoke" / "train_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    pages, boxes = synthetic_pages(TRAIN_CLI_PAGES, 0, SEED + 9,
+                                   sizes=(TRAIN_PAGE, None), with_boxes=True)
+    rows = []
+    for i, (page, page_boxes) in enumerate(zip(pages, boxes)):
+        write_image_bgr(work / f"page{i}.png", page.astype(np.uint8))
+        rows.append([f"page{i}.png,{int(b[0])},{int(b[1])},{int(b[2])},{int(b[3])},table"
+                     for b in page_boxes])
+    (work / "annotations.csv").write_text("\n".join(sum(rows, [])) + "\n")
+    (work / "val.csv").write_text("\n".join(sum(rows[:2], [])) + "\n")
+    (work / "classes.csv").write_text("table,0\n")
+    with torch.device("meta"):
+        record = RetinaNet(1)  # the model record save_model reads
+    save_model(str(work / "init.tdn"), record, smoke_variables())
+
+    def argv(out, *extra, val=False):
+        return ["--bf16", "--device-normalize", "--batch-size", str(TRAIN_CLI_BATCH),
+                "--epochs", str(TRAIN_CLI_EPOCHS), "--steps", "0", "--log-every", "1",
+                "--image-min-side", str(MIN_SIDE), "--image-max-side", str(MAX_SIDE),
+                "--weights", str(work / "init.tdn"),
+                "--snapshot-path", str(out / "snapshots"),
+                "--metrics-path", str(out / "metrics.jsonl"),
+                "--model-path", str(out / "model.tdn"), "--device", dev.type, *extra,
+                "csv", str(work / "annotations.csv"), str(work / "classes.csv"),
+                *(["--val-annotations", str(work / "val.csv")] if val else [])]
+
+    steps_per_epoch = TRAIN_CLI_PAGES // TRAIN_CLI_BATCH
+    total_steps = steps_per_epoch * TRAIN_CLI_EPOCHS
+    full, resumed = work / "full", work / "resumed"
+    counters = {**_all_counters(), "stem_bwd": stem.BWD_LAUNCHES}
+    log = io.StringIO()
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                contextlib.redirect_stdout(log):
+            warnings.simplefilter("always")
+            for c in counters.values():
+                c.reset()
+            sync(dev)
+            t0 = time.monotonic()
+            rc = train.main(argv(full, "--evaluation", val=True))
+            sync(dev)
+            train_s = time.monotonic() - t0
+            launches = {k: c.count for k, c in counters.items()}
+            src = work / "epoch1" / str(steps_per_epoch)
+            shutil.copytree(full / "snapshots" / str(steps_per_epoch), src)
+            t0 = time.monotonic()
+            rc_resume = train.main(argv(resumed, "--snapshot", str(src.parent)))
+            resume_s = time.monotonic() - t0
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic = prev[2]
+    out = log.getvalue().splitlines()
+    require(rc == 0 and rc_resume == 0, f"exit codes {rc}, {rc_resume}: {out[-5:]}")
+    require(launches["stem"] >= total_steps and launches["stem_bwd"] >= total_steps
+            and launches["nms"] > 0, f"the train CLI skipped a kernel: {launches}")
+    recs = [json.loads(x) for x in (full / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in recs if "step" in r]
+    epochs = [r for r in recs if "epoch_loss" in r]
+    require([r["step"] for r in steps] == list(range(1, total_steps + 1)),
+            f"step records {[r.get('step') for r in steps]}")
+    require(len(epochs) == TRAIN_CLI_EPOCHS
+            and all("mAP" in r and "weighted_mAP" in r for r in epochs),
+            f"epoch records {epochs}")
+    losses = [r["loss"] for r in steps]
+    require(np.isfinite(losses).all(), f"non-finite loss: {losses}")
+    snapshot_steps = sorted(int(d.name) for d in (full / "snapshots").iterdir())
+    require(snapshot_steps == [steps_per_epoch, total_steps],
+            f"snapshots {snapshot_steps}")
+    require(f"resumed from step {steps_per_epoch} (epoch 1)" in out,
+            "the resumed run did not report its step")
+    final = str(total_steps)
+    got = torch.load(resumed / "snapshots" / final / "state.pt", weights_only=True)
+    want = torch.load(full / "snapshots" / final / "state.pt", weights_only=True)
+    unequal = [k for k in want if not _states_equal(got.get(k), want[k])]
+    require(not unequal, f"the resumed run's final {unequal} differ from the "
+            f"unbroken run's; nondeterminism warnings: "
+            f"{sorted({str(w.message)[:120] for w in caught})}")
+    del got, want
+    for d in (full / "snapshots", resumed / "snapshots", src.parent):
+        shutil.rmtree(d)  # ~0.4 GB a snapshot (weights and Adam moments)
+
+    for c in counters.values():
+        c.reset()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(log):
+        rc_predict = predict.main([str(full / "model.tdn"), str(work / "page0.png"),
+                                   "--output-dir", str(work / "predict"), "--bf16",
+                                   "--device-normalize", "--device", dev.type])
+    sync(dev)
+    predict_s = time.monotonic() - t0
+    predict_launches = {k: c.count for k, c in counters.items()}
+    lines = (work / "predict" / "detections.jsonl").read_text().splitlines()
+    require(rc_predict == 0 and len(lines) == 1, f"predict: rc {rc_predict}, {lines}")
+    require(predict_launches["stem"] > 0 and predict_launches["nms"] > 0,
+            f"predict skipped a kernel: {predict_launches}")
+    emit({"phase": "train_cli", "ok": True, "model": "resnet50 retinanet, 1 class",
+          "dtype": "bfloat16", "pages": TRAIN_CLI_PAGES, "batch": TRAIN_CLI_BATCH,
+          "epochs": TRAIN_CLI_EPOCHS, "steps": total_steps,
+          "loss_first": losses[0],
+          "loss_last_mean": float(np.mean(losses[-steps_per_epoch:])),
+          "images_per_sec_median": float(np.median([r["images_per_sec"] for r in steps])),
+          "epoch_mAP": [r["mAP"] for r in epochs],
+          "resume": "bit-equal (weights, BN statistics, Adam moments, step, lr)",
+          "nondeterminism_warnings": len(caught),
+          "predict_detections": len(json.loads(lines[0])["detections"]),
+          "launches": launches, "predict_launches": predict_launches,
+          "train_s": train_s, "resume_s": resume_s, "predict_s": predict_s,
+          "seconds": time.monotonic() - t_phase})
+    return {k: launches[k] + predict_launches[k] for k in launches}
+
+
 def _timed_predict(pred, pages, counters, dev):
     """One predict_batch with the launch counters and the predictor's
     host/dispatch counters set to 0 just before it and read just after."""
@@ -2051,6 +2201,8 @@ def main() -> int:
         train_launches = phase_train(dev)
         phase = "train_parity"
         phase_train_parity(dev)
+        phase = "train_cli"
+        train_cli_launches = phase_train_cli(dev)
         phase = "predict_soft"
         soft_launches = phase_predict_soft(dev)
         phase = "predict_r101"
@@ -2066,11 +2218,11 @@ def main() -> int:
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})
         return 1
 
-    # launches: the main paths' runs (predict's two routes, training,
-    # config 5, config 4, serving, the CLIs); conv1x1 (B7) is wired into no
-    # model, in the JAX package too, so no path launches it
-    runs = (launches, train_launches, soft_launches, r101_launches,
-            serve_launches, cli_launches)
+    # launches: the main paths' runs (predict's two routes, training, the
+    # train CLI, config 5, config 4, serving, the CLIs); conv1x1 (B7) is
+    # wired into no model, in the JAX package too, so no path launches it
+    runs = (launches, train_launches, train_cli_launches, soft_launches,
+            r101_launches, serve_launches, cli_launches)
     sources = {
         "ingest": ("tdnet_torch/csrc/ingest.cu", "tdnet/ops/pallas_ingest.py:137"),
         "stem": ("tdnet_torch/csrc/stem.cu", "tdnet/ops/pallas_stem.py:676"),

@@ -55,6 +55,7 @@ setup(
             "tdnet-torch-serve=tdnet_torch.bin.serve:main",
             "tdnet-torch-predict=tdnet_torch.bin.predict:main",
             "tdnet-torch-evaluate=tdnet_torch.bin.evaluate:main",
+            "tdnet-torch-train=tdnet_torch.bin.train:main",
             # reference-compatible aliases (keras-retinanet console scripts)
             "retinanet-train=tdnet.bin.train:main",
             "retinanet-evaluate=tdnet.bin.evaluate:main",

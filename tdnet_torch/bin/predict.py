@@ -5,7 +5,9 @@
 
 Writes ``detections.jsonl`` (one line a page, boxes in page coordinates)
 and an annotated ``det_<name>.png`` copy of each page. Pages are PNG or
-``.npy``. Runs on CUDA unless ``--device cpu``.
+``.npy``. Runs on CUDA unless ``--device cpu``. ``--device-normalize``
+(not in the reference's predict) sends uint8 pages through the fused
+ingest+stem kernel, as serve's flag does.
 """
 
 from __future__ import annotations
@@ -37,6 +39,11 @@ def parse_args(argv=None):
                         help="classes.csv for label names; the reference draws "
                              "them as captions, which the port leaves out")
     parser.add_argument("--bf16", action="store_true")
+    parser.add_argument("--device-normalize", action="store_true",
+                        help="ship uint8 and normalize on the device (with a "
+                             "ResNet on CUDA: the fused ingest+stem kernel), as "
+                             "serve's flag does; the reference's predict has "
+                             "no such flag")
     parser.add_argument("--no-pallas", dest="use_pallas", action="store_false",
                         default=None, help="the plain route: CPU only")
     parser.add_argument("--pre-nms-top-k", default=1024, type=int)
@@ -93,7 +100,8 @@ def predictor_from_bundle(path, args, **overrides) -> Predictor:
 def main(argv=None) -> int:
     args = parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
-    predictor = predictor_from_bundle(args.model, args)
+    predictor = predictor_from_bundle(args.model, args,
+                                      device_preprocess=args.device_normalize)
     if args.labels:
         label_names_from_csv(args.labels)  # parse errors as in the reference
 

@@ -222,7 +222,8 @@ def _decode_body(raw: bytes, ctype: str, keep_u8: bool) -> np.ndarray:
         if image.ndim != 3 or image.shape[2] != 3:
             raise ValueError(f"npy image must be (H, W, 3) BGR, got {image.shape}")
     elif raw.startswith(png.SIGNATURE):
-        image = png.decode_png(raw)[:, :, ::-1]
+        # the reference decodes bodies with cv2.imdecode(IMREAD_COLOR)
+        image = png.decode_png(raw, sixteen_bit="cv2")[:, :, ::-1]
     else:
         raise ValueError(f"could not decode image body: the port reads {png.READS}")
     if keep_u8 and image.dtype == np.uint8:

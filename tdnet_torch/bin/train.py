@@ -1,0 +1,345 @@
+"""Training CLI, the counterpart of ``tdnet/bin/train.py``:
+
+    python -m tdnet_torch.bin.train [options] csv annotations.csv classes.csv
+
+The reference's flags and defaults: Adam lr 1e-5 with clipnorm 1e-3, batch
+size 1, 10000 steps an epoch, 50 epochs, a checkpoint every epoch, optional
+per-epoch mAP (``--evaluation`` with ``--val-annotations``) and
+ReduceLROnPlateau(loss, 0.1, patience 2). Runs on CUDA unless ``--device
+cpu``; with ``--device-normalize`` a ResNet trains through the fused
+ingest+stem kernels (forward and backward), ``--no-fused-stem`` takes the
+normalize kernel and cuDNN instead.
+
+Initial weights: ``--weights`` takes a ``.tdn`` bundle or one of the
+port's checkpoint directories (a reference orbax snapshot converts to a
+``.tdn`` with the reference's ``convert_model``). Without it the model
+starts from ``tdnet_torch.weights.random_variables(seed=--seed)``, which
+does not reproduce the reference's ``jax.random`` init: only runs from the
+same weights file match the reference's. ``--snapshot`` resumes one of the
+port's checkpoint directories in full (weights, Adam moments, step and
+learning rate) and replays the loader's epochs, as the reference does.
+
+Not ported yet; each parses, then raises naming its ROADMAP item:
+``--random-transform`` and ``--tensorboard-dir`` (A11); ``.h5`` weights,
+``--imagenet-weights`` and ``--bn-warmup`` (A12); ``--coco-evaluation``
+(A14.4); ``--spatial``, ``--tensor-parallel``, ``--zero``, ``--pipeline``,
+``--microbatches`` and ``--distributed`` (A16).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from tdnet_torch.bin._common import add_dataset_args, anchor_params_from_args, make_dataset
+from tdnet_torch.data.generator import BatchLoader, LoaderConfig
+from tdnet_torch.data.prefetch import DevicePrefetcher
+from tdnet_torch.device import resolve_device
+from tdnet_torch.models import backbone as backbone_registry
+from tdnet_torch.models.io import save_model
+from tdnet_torch.ops.anchors import AnchorParameters
+from tdnet_torch.train.checkpoint import Checkpointer
+from tdnet_torch.train.loop import (RSS_BUDGET_EXIT_CODE, ReduceLROnPlateau,
+                                    RssBudgetExceeded, fit)
+from tdnet_torch.train.predictor import Predictor
+from tdnet_torch.train.step import create_optimizer, create_train_state, make_train_step
+from tdnet_torch.train.weights import load_initial_weights
+from tdnet_torch.utils.eval import evaluate
+from tdnet_torch.weights import random_variables, variables_from_torch_state
+
+__all__ = ["parse_args", "main"]
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="Train a tdnet_torch RetinaNet.")
+    add_dataset_args(parser)
+
+    parser.add_argument("--backbone", default="resnet50", type=str)
+    parser.add_argument("--batch-size", default=1, type=int)
+    parser.add_argument("--lr", default=1e-5, type=float)
+    parser.add_argument("--clipnorm", default=1e-3, type=float)
+    parser.add_argument("--epochs", default=50, type=int)
+    parser.add_argument("--steps", default=10000, type=int,
+                        help="steps per epoch (reference default 10000); "
+                             "0 = one full pass over the dataset per epoch")
+    parser.add_argument("--reduce-lr-factor", default=0.1, type=float,
+                        help="plateau LR multiplier")
+    parser.add_argument("--reduce-lr-patience", default=2, type=int,
+                        help="epochs without loss improvement before the LR drops")
+    parser.add_argument("--snapshot-path", default="./snapshots", type=str)
+    parser.add_argument("--snapshot", default=None, type=str,
+                        help="resume from one of the port's checkpoint directories")
+    parser.add_argument("--weights", default=None, type=str,
+                        help="initialize weights from a .tdn bundle or one of "
+                             "the port's checkpoint directories (a reference "
+                             "orbax snapshot: convert it to .tdn with the "
+                             "reference's convert_model); keras .h5: not "
+                             "ported yet (ROADMAP A12)")
+    parser.add_argument("--imagenet-weights", action="store_true",
+                        help="not ported yet (ROADMAP A12)")
+    parser.add_argument("--bn-warmup", default=0, type=int, metavar="N",
+                        help="not ported yet (ROADMAP A12)")
+    parser.add_argument("--model-path", default=None, type=str,
+                        help="write a deployable .tdn at the end")
+    parser.add_argument("--no-snapshots", dest="snapshots", action="store_false")
+    parser.add_argument("--freeze-backbone", action="store_true")
+    parser.add_argument("--random-transform", action="store_true",
+                        help="not ported yet (ROADMAP A11)")
+    parser.add_argument("--config", default=None, type=str,
+                        help="anchor parameters INI (reference-compatible)")
+    parser.add_argument("--image-min-side", default=800, type=int)
+    parser.add_argument("--image-max-side", default=1333, type=int)
+    parser.add_argument("--max-boxes", default=None, type=int,
+                        help="GT padding width (default: auto-sized from a "
+                             "dataset scan to the densest image, floor 64)")
+    parser.add_argument("--evaluation", dest="evaluation", action="store_true",
+                        help="run mAP evaluation each epoch (needs --val-annotations)")
+    parser.add_argument("--coco-evaluation", action="store_true",
+                        help="not ported yet (ROADMAP A14.4)")
+    parser.add_argument("--score-threshold", default=0.05, type=float)
+    parser.add_argument("--seed", default=0, type=int,
+                        help="loader shuffle and, without --weights, the random "
+                             "init (which differs from the reference's)")
+    parser.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    parser.add_argument("--device-normalize", action="store_true",
+                        help="ship uint8 batches; normalization runs on the device")
+    parser.add_argument("--no-fused-stem", dest="fused_stem",
+                        action="store_false", default=None,
+                        help="with --device-normalize, the normalize kernel and "
+                             "cuDNN in place of the fused ingest+stem kernels "
+                             "(default: fused on CUDA for ResNets)")
+    parser.add_argument("--fused-stem", dest="fused_stem",
+                        action="store_true", default=None,
+                        help="force the fused ingest+stem route on (on the CPU: "
+                             "its plain version)")
+    parser.add_argument("--log-every", default=50, type=int)
+    parser.add_argument("--metrics-path", default=None, type=str)
+    parser.add_argument("--tensorboard-dir", default=None, type=str,
+                        help="not ported yet (ROADMAP A11)")
+    parser.add_argument("--profile-dir", default=None, type=str,
+                        help="capture a torch.profiler trace of the second epoch")
+    parser.add_argument("--nan-check", action="store_true",
+                        help="raise FloatingPointError on a non-finite loss or "
+                             "gradient norm (one device sync a step)")
+    parser.add_argument("--no-pallas", dest="use_pallas", action="store_false",
+                        default=None, help="the plain route in the per-epoch "
+                                           "eval: CPU only")
+    parser.add_argument("--eval-batch-size", default=None, type=int,
+                        help="per-epoch eval batch size (default: 16 on CUDA, "
+                             "1 on the CPU)")
+    parser.add_argument("--rss-budget-mb", default=None, type=float,
+                        metavar="MB",
+                        help="stop cleanly (exit code 75) after the first "
+                             "epoch whose end finds host RSS above MB, with "
+                             "the epoch snapshot saved; relaunch with "
+                             "--snapshot. Requires snapshots.")
+    parser.add_argument("--eval-every", default=1, type=int, metavar="N",
+                        help="run the per-epoch evaluation every N epochs "
+                             "(always on the final epoch)")
+    parser.add_argument("--workers", default=1, type=int,
+                        help="host decode/resize threads per batch (<=1: in "
+                             "the prefetch thread)")
+    parser.add_argument("--spatial", default=1, type=int, metavar="S",
+                        help="spatial partitioning: not ported yet (ROADMAP A16)")
+    parser.add_argument("--tensor-parallel", default=1, type=int, metavar="M",
+                        help="tensor parallelism: not ported yet (ROADMAP A16)")
+    parser.add_argument("--zero", action="store_true",
+                        help="ZeRO-1: not ported yet (ROADMAP A16)")
+    parser.add_argument("--pipeline", action="store_true",
+                        help="pipeline parallelism: not ported yet (ROADMAP A16)")
+    parser.add_argument("--microbatches", default=None, type=int,
+                        help="pipeline microbatches: not ported yet (ROADMAP A16)")
+    parser.add_argument("--distributed", default=None, type=str,
+                        metavar="COORD:PORT,NPROC,RANK",
+                        help="multi-host training: not ported yet (ROADMAP A16)")
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    if args.use_pallas is False and torch.device(args.device).type == "cuda":
+        parser.error("--no-pallas asks for the plain route, which the port "
+                     "runs only on the CPU (--device cpu)")
+    return args
+
+
+def _refuse_unported(args) -> None:
+    """Flags whose parts come later raise, naming their ROADMAP item; at
+    their defaults they pass."""
+    weights = args.weights or ""
+    for flag, used, item in (
+        ("--random-transform", args.random_transform, "A11"),
+        ("--tensorboard-dir", args.tensorboard_dir is not None, "A11"),
+        ("keras .h5 --weights", weights.endswith((".h5", ".hdf5")), "A12"),
+        ("--imagenet-weights", args.imagenet_weights, "A12"),
+        ("--bn-warmup", args.bn_warmup > 0, "A12"),
+        ("--coco-evaluation", args.coco_evaluation, "A14.4"),
+        ("--spatial", args.spatial > 1, "A16"),
+        ("--tensor-parallel", args.tensor_parallel > 1, "A16"),
+        ("--zero", args.zero, "A16"),
+        ("--pipeline", args.pipeline, "A16"),
+        ("--microbatches", args.microbatches is not None, "A16"),
+        ("--distributed", args.distributed is not None, "A16"),
+    ):
+        if used:
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
+
+
+def _nan_checked(train_step):
+    """The step, then a check that loss and grad_norm are finite (a device
+    sync)."""
+
+    def step(state, batch):
+        state, metrics = train_step(state, batch)
+        for key in ("loss", "grad_norm"):
+            if not bool(torch.isfinite(metrics[key])):
+                raise FloatingPointError(
+                    f"--nan-check: {key} is {float(metrics[key])} at step {state.step}")
+        return state, metrics
+
+    return step
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    _refuse_unported(args)
+    if args.rss_budget_mb is not None and not args.snapshots:
+        raise SystemExit("--rss-budget-mb needs snapshots (the budget stop "
+                         "checkpoints and exits for a --snapshot relaunch); "
+                         "drop --no-snapshots")
+    device = resolve_device(args.device)
+
+    train_ds = make_dataset(args, "train")
+    val_ds = make_dataset(args, "val")
+    anchor_params = anchor_params_from_args(args)
+
+    bb = backbone_registry(args.backbone)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    n_anchors = (anchor_params or AnchorParameters.default).num_anchors
+    model = bb.retinanet(train_ds.num_classes(), dtype=dtype, num_anchors=n_anchors)
+
+    loader = BatchLoader(train_ds, LoaderConfig(
+        batch_size=args.batch_size,
+        min_side=args.image_min_side,
+        max_side=args.image_max_side,
+        max_boxes=args.max_boxes,
+        preprocess_mode=bb.preprocess_mode,
+        device_normalize=args.device_normalize,
+        seed=args.seed,
+        workers=args.workers,
+    ))
+    try:
+        if args.steps <= 0:
+            args.steps = loader.steps_per_epoch()
+            print(f"--steps 0: using one dataset pass = {args.steps} steps/epoch")
+
+        # initial weights (reference: create_models --weights; --snapshot below
+        # takes precedence)
+        variables = random_variables(train_ds.num_classes(), args.backbone,
+                                     seed=args.seed, num_anchors=n_anchors)
+        if args.weights:
+            variables = load_initial_weights(args.weights, variables,
+                                             backbone_name=args.backbone)
+        state = create_train_state(model, variables,
+                                   optimizer=create_optimizer(args.lr, args.clipnorm),
+                                   freeze_backbone=args.freeze_backbone, device=device)
+        del variables
+
+        ckpt = Checkpointer(args.snapshot_path) if args.snapshots else None
+        initial_epoch = 0
+        if args.snapshot:
+            state = Checkpointer(args.snapshot).restore(state)
+            initial_epoch = state.step // max(args.steps, 1)
+            # replay the loader's shuffle to this epoch (as the reference does:
+            # epochs, not steps, ROADMAP C5)
+            loader.skip_epochs(initial_epoch)
+            print(f"resumed from step {state.step} (epoch {initial_epoch})")
+
+        train_step = make_train_step(
+            model, train_ds.num_classes(), anchor_params=anchor_params,
+            preprocess_mode=bb.preprocess_mode, fused_stem=args.fused_stem)
+        if args.nan_check:
+            train_step = _nan_checked(train_step)
+
+        evaluate_fn = None
+        if args.evaluation and val_ds is not None:
+            # one Predictor over the live training model: no copy of the weights
+            predictor = Predictor(
+                model,
+                anchor_params=anchor_params,
+                min_side=args.image_min_side,
+                max_side=args.image_max_side,
+                preprocess_mode=bb.preprocess_mode,
+                score_threshold=args.score_threshold,
+                use_pallas=args.use_pallas,
+                batch_size=args.eval_batch_size,
+                device=device,
+            )
+            # the Predictor put the model in eval mode with the heads' dtype at
+            # its boundary; training keeps f32 outputs, as the reference's model
+            eval_output_dtype, model.output_dtype = model.output_dtype, torch.float32
+            model.train()
+
+            def evaluate_fn(state):
+                model.eval()
+                model.output_dtype = eval_output_dtype
+                try:
+                    aps = evaluate(val_ds, predictor)
+                finally:
+                    model.output_dtype = torch.float32
+                    model.train()
+                # 'mAP' is the UNWEIGHTED class mean (the reference Evaluate
+                # callback's default); the annotation-weighted value is logged
+                # under its own key
+                present = [(ap, n) for ap, n in aps.values() if n > 0]
+                mAP = sum(ap for ap, _ in present) / len(present) if present else 0.0
+                total = sum(n for _, n in present)
+                weighted = sum(ap * n for ap, n in present) / total if total else 0.0
+                return {"mAP": mAP, "weighted_mAP": weighted}
+
+        batches = DevicePrefetcher(loader.forever(), device)
+        try:
+            state = fit(
+                state,
+                train_step,
+                batches,
+                steps_per_epoch=args.steps,
+                epochs=args.epochs,
+                checkpointer=ckpt,
+                evaluate_fn=evaluate_fn,
+                lr_schedule=ReduceLROnPlateau(
+                    factor=args.reduce_lr_factor,
+                    patience=args.reduce_lr_patience,
+                ),
+                metrics_path=args.metrics_path,
+                log_every=args.log_every,
+                initial_epoch=initial_epoch,
+                profile_dir=args.profile_dir,
+                eval_every=args.eval_every,
+                rss_budget_mb=args.rss_budget_mb,
+            )
+        except RssBudgetExceeded as stop:
+            print(f"tdnet: {stop}", flush=True)
+            return RSS_BUDGET_EXIT_CODE
+        finally:
+            batches.close()
+    finally:
+        loader.close()
+
+    if args.model_path:
+        save_model(
+            args.model_path,
+            model,
+            variables_from_torch_state(model.state_dict()),
+            anchor_params=anchor_params,
+            inference_config={
+                "min_side": args.image_min_side,
+                "max_side": args.image_max_side,
+                "preprocess_mode": bb.preprocess_mode,
+            },
+        )
+        print(f"saved deployable model to {args.model_path}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

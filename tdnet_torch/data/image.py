@@ -53,7 +53,7 @@ def read_image_bgr(path) -> np.ndarray:
         data = f.read()
     if not data.startswith(png.SIGNATURE):
         raise ValueError(f"{path}: unsupported image format; the port reads {png.READS}")
-    return png.decode_png(data)[:, :, ::-1].astype(np.float32)
+    return png.decode_png(data, sixteen_bit="pil")[:, :, ::-1].astype(np.float32)
 
 
 def write_image_bgr(path, image_bgr: np.ndarray) -> None:

@@ -1,9 +1,14 @@
 """PNG decoding and encoding with zlib and numpy, so the port reads pages
 without PIL or cv2 (the GPU machine has neither).
 
-Reads non-interlaced PNG: 8-bit gray, RGB, palette, gray+alpha and RGBA,
-and gray or palette at 1, 2 or 4 bits; all five row filters. Anything else
-(16-bit samples, Adam7 interlacing) raises ``ValueError``. Writes 8-bit
+Reads every PNG colour type (gray, RGB, palette, gray+alpha, RGBA) at every
+bit depth the format allows (1, 2, 4, 8 and 16), non-interlaced or Adam7,
+with all five row filters. An Adam7 page is seven sub-images, each filtered
+on its own, whose pixels are scattered onto the full grid. 16-bit samples
+are cut to 8 bits by the rule of the reference's decoder for the route:
+PIL's ``convert("RGB")`` for files keeps the high byte of RGB, gray+alpha
+and RGBA and clips 16-bit gray to 255; ``cv2.imdecode(..., IMREAD_COLOR)``
+for serve bodies keeps the high byte of every colour type. Writes 8-bit
 gray, RGB or RGBA with the Up filter on every row.
 
 Rows whose filter is Average or Paeth depend on the reconstructed byte to
@@ -22,9 +27,16 @@ import numpy as np
 __all__ = ["SIGNATURE", "READS", "decode_png", "encode_png", "png_size"]
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-READS = ("8-bit non-interlaced PNG (gray, RGB, palette, gray+alpha, RGBA; "
-         "gray and palette also at 1, 2 or 4 bits) and .npy")
+READS = ("PNG (gray, RGB, palette, gray+alpha, RGBA at 1 to 16 bits, "
+         "non-interlaced or Adam7) and .npy")
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+# 16-bit -> 8-bit, by the reference decoder of each route: colour types
+# whose samples are clipped to 255 (the rest keep their high byte)
+_SIXTEEN_BIT_CLIPPED = {"pil": (0,), "cv2": ()}
 
 
 def _chunks(data: bytes):
@@ -88,10 +100,36 @@ def _unfilter(raw: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8).reshape(h, stride)
 
 
-def decode_png(data: bytes) -> np.ndarray:
+def _sub_image(raw: np.ndarray, pos: int, height: int, width: int,
+               depth: int, channels: int):
+    """One filtered sub-image at ``raw[pos:]`` -> ((height, width,
+    channels) samples, uint8, or uint16 at 16 bits; the position after
+    it)."""
+    stride = (width * channels * depth + 7) // 8
+    end = pos + height * (stride + 1)
+    if raw.size < end:
+        raise ValueError("truncated PNG image data")
+    rows = raw[pos:end].reshape(height, stride + 1)
+    px = _unfilter(rows[:, 1:], rows[:, 0], max(1, channels * depth // 8))
+    if depth < 8:
+        vals = np.unpackbits(px, axis=1).reshape(height, -1, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        px = (vals * weights).sum(axis=2, dtype=np.uint8)[:, :width]
+    elif depth == 16:
+        px = px.reshape(height, -1, 2).astype(np.uint16)
+        px = (px[..., 0] << 8) | px[..., 1]
+    return px.reshape(height, width, channels), end
+
+
+def decode_png(data: bytes, sixteen_bit: str = "pil") -> np.ndarray:
     """PNG bytes -> (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
     it: gray is repeated, alpha is dropped, palette indices are looked up,
-    gray below 8 bits is scaled to 0..255."""
+    gray below 8 bits is scaled to 0..255. ``sixteen_bit`` names the route
+    whose rule cuts 16-bit samples to 8 bits: ``"pil"`` (files) or
+    ``"cv2"`` (serve bodies); see the module docstring."""
+    if sixteen_bit not in _SIXTEEN_BIT_CLIPPED:
+        raise ValueError(f"sixteen_bit must be one of {sorted(_SIXTEEN_BIT_CLIPPED)}, "
+                         f"got {sixteen_bit!r}")
     header, palette, idat = None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -105,27 +143,27 @@ def decode_png(data: bytes) -> np.ndarray:
     width, height, depth, color, _, _, interlace = header
     if color not in _CHANNELS:
         raise ValueError(f"bad PNG colour type {color}")
-    if interlace:
-        raise ValueError(f"interlaced PNG is not supported; this reader takes {READS}")
-    low_depth_ok = color in (0, 3) and depth in (1, 2, 4)
-    if depth != 8 and not low_depth_ok:
-        raise ValueError(f"{depth}-bit PNG (colour type {color}) is not "
-                         f"supported; this reader takes {READS}")
+    if depth not in _DEPTHS[color]:
+        raise ValueError(f"bad PNG bit depth {depth} for colour type {color}")
+    if interlace not in (0, 1):
+        raise ValueError(f"bad PNG interlace method {interlace}")
     channels = _CHANNELS[color]
-    bits = channels * depth
-    stride = (width * bits + 7) // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < height * (stride + 1):
-        raise ValueError("truncated PNG image data")
-    rows = raw[:height * (stride + 1)].reshape(height, stride + 1)
-    px = _unfilter(rows[:, 1:], rows[:, 0], max(1, bits // 8))
-    if depth < 8:
-        vals = np.unpackbits(px, axis=1).reshape(height, -1, depth)
-        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        px = (vals * weights).sum(axis=2, dtype=np.uint8)[:, :width]
-        if color == 0:
-            px = px * np.uint8(255 // ((1 << depth) - 1))
-    px = px.reshape(height, width, channels)
+    if interlace:
+        px = np.zeros((height, width, channels),
+                      np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for y0, x0, dy, dx in _ADAM7:
+            h, w = -(-(height - y0) // dy), -(-(width - x0) // dx)
+            if h > 0 and w > 0:  # an empty pass has no bytes, not even filters
+                px[y0::dy, x0::dx], pos = _sub_image(raw, pos, h, w, depth, channels)
+    else:
+        px, _ = _sub_image(raw, 0, height, width, depth, channels)
+    if depth == 16:
+        px = (np.minimum(px, 255) if color in _SIXTEEN_BIT_CLIPPED[sixteen_bit]
+              else px >> 8).astype(np.uint8)
+    elif depth < 8 and color == 0:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
     if color == 3:
         if palette is None:
             raise ValueError("palette PNG without PLTE")

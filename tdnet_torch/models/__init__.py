@@ -1,1 +1,62 @@
-"""Models: ResNet backbone, FPN + subnets (RetinaNet), inference tail."""
+"""Models: ResNet backbone, FPN + subnets (RetinaNet), inference tail; and
+the backbone registry, the counterpart of ``tdnet/models/__init__.py``.
+
+``backbone(name)`` returns a descriptor with the name and the preprocess
+mode the CLIs need. The table holds every name the reference knows; the
+port builds the ResNets, and the others raise (ROADMAP A15) when a model is
+built from them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+__all__ = ["Backbone", "backbone"]
+
+
+@dataclass(frozen=True)
+class Backbone:
+    """Descriptor for a registered backbone family."""
+
+    name: str
+    preprocess_mode: str  # data/image.py preprocess_image mode
+
+    def retinanet(self, num_classes: int, dtype: torch.dtype = torch.float32,
+                  **kwargs):
+        """The RetinaNet on this backbone; names the port does not build
+        raise ``NotImplementedError`` (ROADMAP A15)."""
+        from tdnet_torch.models.retinanet import RetinaNet
+
+        return RetinaNet(num_classes, backbone=self.name, dtype=dtype, **kwargs)
+
+
+# Preprocessing modes follow the reference backbones: ResNet/SE-ResNet/VGG
+# use caffe (BGR + mean subtraction); MobileNet/DenseNet use tf ([-1, 1]
+# scaling).
+_REGISTRY = {
+    "resnet50": Backbone("resnet50", "caffe"),
+    "resnet101": Backbone("resnet101", "caffe"),
+    "resnet152": Backbone("resnet152", "caffe"),
+    "seresnet50": Backbone("seresnet50", "caffe"),
+    "seresnet101": Backbone("seresnet101", "caffe"),
+    "seresnet152": Backbone("seresnet152", "caffe"),
+    "vgg16": Backbone("vgg16", "caffe"),
+    "vgg19": Backbone("vgg19", "caffe"),
+    "densenet121": Backbone("densenet121", "tf"),
+    "densenet169": Backbone("densenet169", "tf"),
+    "densenet201": Backbone("densenet201", "tf"),
+    "mobilenet": Backbone("mobilenet", "tf"),
+    "mobilenet_0.75": Backbone("mobilenet_0.75", "tf"),
+    "mobilenet_0.5": Backbone("mobilenet_0.5", "tf"),
+}
+
+
+def backbone(name: str) -> Backbone:
+    """Look up a backbone by name (reference: models/__init__.py backbone())."""
+    if name not in _REGISTRY:
+        raise ValueError(
+            f"unknown backbone {name!r}; available: {sorted(_REGISTRY)}"
+        )
+    return _REGISTRY[name]

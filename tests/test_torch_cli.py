@@ -81,13 +81,17 @@ def test_png_palette_and_low_bit_depths_equal_pil(tmp_path, colors):
     np.testing.assert_array_equal(read_image_bgr(bw), ref(bw))
 
 
-def _filtered_png(rows, ftypes, bpp=3):
-    """An RGB PNG whose row r uses filter ftypes[r] (the PNG spec's
-    forward filters, written out)."""
-    h, stride = rows.shape
+# Adam7 passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _filter_rows(rows, ftypes, bpp):
+    """The PNG spec's forward filters, written out: row r of ``rows``
+    (bytes, (h, stride)) filtered by ftypes[r], each row led by its type."""
     out = bytearray()
-    prev = np.zeros(stride, np.int32)
-    for r in range(h):
+    prev = np.zeros(rows.shape[1], np.int32)
+    for r in range(rows.shape[0]):
         cur = rows[r].astype(np.int32)
         left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
         upleft = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
@@ -98,14 +102,52 @@ def _filtered_png(rows, ftypes, bpp=3):
         out.append(ftypes[r])
         out += ((cur - pred) % 256).astype(np.uint8).tobytes()
         prev = cur
+    return bytes(out)
 
-    def chunk(kind, body):
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(
-            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
 
-    ihdr = struct.pack(">IIBBBBB", stride // bpp, h, 8, 2, 0, 0, 0)
-    return (png.SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(bytes(out)))
-            + chunk(b"IEND", b""))
+def _sample_bytes(samples, depth):
+    """(h, w, c) samples -> (h, stride) bytes: big-endian at 16 bits,
+    packed from the high bit below 8."""
+    h, w, c = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, -1)
+    bits = np.unpackbits(samples.astype(np.uint8).reshape(h, w * c, 1), axis=2)
+    return np.packbits(bits[:, :, 8 - depth:].reshape(h, -1), axis=1)
+
+
+def _png_bytes(samples, color, depth, interlace=False, palette=None, ftypes=None):
+    """A PNG of any colour type and depth, flat or Adam7, written here
+    independently of the port. Filters are ``ftypes`` (row by row, flat
+    pages only) or drawn at random for each row of each pass."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    rng = np.random.RandomState(h * w + depth)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    body = b""
+    for y0, x0, dy, dx in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            f = ftypes if ftypes is not None else rng.randint(0, 5, sub.shape[0])
+            body += _filter_rows(_sample_bytes(sub, depth), f, bpp)
+
+    def chunk(kind, data):
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(
+            ">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, int(interlace))
+    plte = b"" if palette is None else chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (png.SIGNATURE + chunk(b"IHDR", ihdr) + plte
+            + chunk(b"IDAT", zlib.compress(body)) + chunk(b"IEND", b""))
+
+
+def _filtered_png(rows, ftypes, bpp=3):
+    """An RGB PNG whose row r uses filter ftypes[r]."""
+    return _png_bytes(rows.reshape(rows.shape[0], -1, bpp), 2, 8, ftypes=ftypes)
 
 
 def test_png_every_filter_type_and_encoder_round_trip():
@@ -122,29 +164,87 @@ def test_png_every_filter_type_and_encoder_round_trip():
 
 
 def test_unsupported_images_raise(tmp_path):
-    """JPEG, 16-bit and interlaced PNG raise, naming what the port reads; a
-    .npy page is read as BGR float32."""
+    """JPEG raises, naming what the port reads; a .npy page is read as BGR
+    float32; a page written by write_image_bgr reads back."""
     rng = np.random.RandomState(2)
     a = rng.randint(0, 256, (16, 16, 3)).astype(np.uint8)
     with pytest.raises(ValueError, match="PNG"):
         read_image_bgr(_save_pil(tmp_path, "a.jpg", a))
-    data = bytearray(png.encode_png(a))
-    data[28] = 1  # IHDR's interlace byte: Adam7
-    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
-    (tmp_path / "i.png").write_bytes(bytes(data))
-    with pytest.raises(ValueError, match="interlaced"):
-        read_image_bgr(tmp_path / "i.png")
-    from PIL import Image
-
-    path = tmp_path / "sixteen.png"
-    Image.fromarray(rng.randint(0, 65535, (8, 8)).astype(np.uint16)).save(path)
-    with pytest.raises(ValueError, match="16-bit"):
-        read_image_bgr(path)
     np.save(tmp_path / "page.npy", a)
     got = read_image_bgr(tmp_path / "page.npy")
     assert got.dtype == np.float32 and np.array_equal(got, a)
     write_image_bgr(tmp_path / "w.png", a)
     np.testing.assert_array_equal(read_image_bgr(tmp_path / "w.png"), a)
+
+
+# (colour type, bit depth): every pair the PNG format allows
+PNG_TYPES = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16),
+             (3, 1), (3, 2), (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+_SAMPLES_A_PIXEL = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _random_png(color, depth, interlace, shape, seed=0):
+    """A page of uniform random samples over the depth's whole range (so
+    16-bit gray crosses 255 and every high byte occurs)."""
+    rng = np.random.RandomState(seed)
+    samples = rng.randint(0, 1 << depth, shape + (_SAMPLES_A_PIXEL[color],))
+    palette = rng.randint(0, 256, (1 << depth, 3)) if color == 3 else None
+    return _png_bytes(samples, color, depth, interlace, palette)
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["flat", "adam7"])
+@pytest.mark.parametrize("color,depth", PNG_TYPES,
+                         ids=[f"type{c}-{d}bit" for c, d in PNG_TYPES])
+@pytest.mark.parametrize("route", ["file", "serve"])
+def test_png_decode_equals_reference_route(tmp_path, route, color, depth, interlace):
+    """Every colour type at every depth, flat and Adam7, at 37x53 (every
+    Adam7 pass partial), against the reference decoder of each route:
+    files through tdnet's read_image_bgr (PIL ``convert("RGB")``, which
+    clips 16-bit gray to 255 and keeps the high byte of the other 16-bit
+    types) and serve bodies through ``cv2.imdecode(IMREAD_COLOR)`` as
+    tdnet/bin/serve.py calls it (the high byte of every 16-bit type)."""
+    data = _random_png(color, depth, interlace, (37, 53))
+    if route == "file":
+        from tdnet.data.image import read_image_bgr as ref
+
+        path = tmp_path / "page.png"
+        path.write_bytes(data)
+        got, want = read_image_bgr(path), ref(path)
+        assert got.dtype == want.dtype == np.float32
+    else:
+        import cv2
+
+        from tdnet_torch.bin.serve import _decode_body
+
+        got = _decode_body(data, "image/png", keep_u8=True)
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        assert got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 9), (9, 1), (3, 2), (5, 6)])
+def test_png_adam7_with_empty_passes_equals_pil(tmp_path, shape):
+    """Pages smaller than the 8x8 Adam7 tile, where some passes hold no
+    pixels and so no bytes: 16-bit RGBA and 2-bit gray against PIL."""
+    from tdnet.data.image import read_image_bgr as ref
+
+    for color, depth in ((6, 16), (0, 2)):
+        path = tmp_path / f"t{color}.png"
+        path.write_bytes(_random_png(color, depth, True, shape, seed=sum(shape)))
+        np.testing.assert_array_equal(read_image_bgr(path), ref(path))
+
+
+def test_png_sixteen_bit_rules_differ_only_for_gray():
+    """The two routes' 16-bit rules: equal except on gray, where the file
+    route clips and the serve route keeps the high byte; an unknown rule
+    raises."""
+    for color in (0, 2, 4, 6):
+        data = _random_png(color, 16, False, (7, 9), seed=color)
+        same = np.array_equal(png.decode_png(data, sixteen_bit="pil"),
+                              png.decode_png(data, sixteen_bit="cv2"))
+        assert same == (color != 0)
+    with pytest.raises(ValueError, match="sixteen_bit"):
+        png.decode_png(data, sixteen_bit="libpng")
 
 
 CSV_ROWS = ["page0.png,5,6,40,30,table", "page0.png,50,10,90,60,figure",
