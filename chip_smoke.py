@@ -83,6 +83,11 @@ TRAIN_PAGE = (800, 1300)              # resize scale 1.0 -> bucket 800x1344
 PARITY_SIDES, PARITY_PAGE = (256, 384), (256, 384)
 # the train CLI: 4 pages at batch 2 (--steps 0: 2 steps an epoch), 2 epochs
 TRAIN_CLI_PAGES, TRAIN_CLI_BATCH, TRAIN_CLI_EPOCHS = 4, 2, 2
+# train_cli_init: where --imagenet-weights finds its file ($TDNET_PRETRAINED_DIR),
+# and the warm-up's CUDA-vs-CPU bound on each new mean and var, relative to
+# the larger of the element and its leaf's largest magnitude (f32, TF32 off)
+PRETRAINED_DIR = ROOT / "build" / "chip_smoke" / "pretrained"
+WARMUP_TOL = 1e-3
 # B5 (R, K): config 5's 16 pages x 3 classes, then 128 pages x 3
 SOFT_SHAPES = [(48, 1024), (384, 1024)]
 SOFT_PICKS = 300
@@ -289,8 +294,22 @@ def phase_device():
     emit({"phase": "device", "ok": True, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "tf32": "off (cudnn and matmul)"})
+          "tf32": "off (cudnn and matmul)", "packages": _probe_packages()})
     return smi_line
+
+
+def _probe_packages():
+    """Whether h5py and torchvision import here (a record for later work:
+    nothing on the port's path uses either), each in a child interpreter
+    so that nothing of them is loaded into this one."""
+    found = {}
+    for name in ("h5py", "torchvision"):
+        res = subprocess.run(
+            [sys.executable, "-c", f"import {name}; print({name}.__version__)"],
+            capture_output=True, text=True, timeout=120)
+        found[name] = (res.stdout.strip() if res.returncode == 0
+                       else "absent: " + (res.stderr.strip().splitlines() or ["?"])[-1][:120])
+    return found
 
 
 def phase_build():
@@ -1708,6 +1727,188 @@ def phase_train_cli(dev):
     return {k: launches[k] + predict_launches[k] for k in launches}
 
 
+def _h5_numbers(path, seconds):
+    mb = os.path.getsize(path) / 1e6
+    return {"MB": round(mb, 3), "s": seconds, "MB_per_s": mb / seconds}
+
+
+def phase_train_cli_init(dev):
+    """The train CLI's initial-weight flags at full width, on the PNG pages
+    and CSVs of the ``train_cli`` phase (which writes them):
+
+    1. ``smoke_variables()`` (ResNet-50 RetinaNet, 1 class) written as a
+       keras ``.h5`` by the port's HDF5 writer, read back by
+       ``load_keras_retinanet_h5(strict=True)``: bit-equal, with the write
+       and read seconds and MB/s;
+    2. its backbone alone as ``ResNet-50-model.keras.h5`` in
+       ``$TDNET_PRETRAINED_DIR`` (set by ``main`` before the port is
+       imported, since the search directories are read at import, as in
+       the reference);
+    3. ``bn_warmup`` on the card (f32, TF32 off) and on the CPU on the same
+       2 batches of 2 pages at 256x384: every new mean and var within
+       WARMUP_TOL of the CPU's, relative to the larger of the element and
+       the leaf's largest magnitude;
+    4. the train CLI with ``--bf16 --device-normalize --imagenet-weights
+       --bn-warmup 2 --random-transform --tensorboard-dir --evaluation
+       --steps 0``, batch TRAIN_CLI_BATCH, TRAIN_CLI_EPOCHS epochs:
+       the lookup resolves to step 2's file, the keras import summary
+       matches every backbone weight, the warm-up line is printed, the
+       stem, stem_bwd and nms kernels launch (counters set to 0 just
+       before the run), losses are finite, and the event file (read by the
+       port's reader, every CRC checked) holds one scalar a numeric value
+       of each JSONL record at that record's step;
+    5. the evaluate CLI on step 1's ``.h5`` on CUDA: the NMS kernel
+       launches (counters set to 0 just before it)."""
+    import numpy as np
+    import torch
+
+    from tdnet_torch.bin import evaluate, train
+    from tdnet_torch.compat.keras_import import (export_random_keras_weights,
+                                                 keras_name_map,
+                                                 load_keras_retinanet_h5)
+    from tdnet_torch.device import no_tf32
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.ops import stem
+    from tdnet_torch.train import weights
+    from tdnet_torch.train.events import read_events
+    from tdnet_torch.weights import random_variables
+
+    t_phase = time.monotonic()
+    pages_dir = ROOT / "build" / "chip_smoke" / "train_cli"
+    work = ROOT / "build" / "chip_smoke" / "train_cli_init"
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(PRETRAINED_DIR, ignore_errors=True)
+    work.mkdir(parents=True)
+    PRETRAINED_DIR.mkdir(parents=True)
+
+    def leaves(tree, prefix=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + (k,))
+            else:
+                yield prefix + (k,), v
+
+    # 1. the full model through the port's HDF5 writer and reader
+    variables = smoke_variables()
+    full = work / "full.h5"
+    t0 = time.monotonic()
+    export_random_keras_weights(str(full), variables)
+    write = _h5_numbers(full, time.monotonic() - t0)
+    t0 = time.monotonic()
+    loaded = load_keras_retinanet_h5(str(full), random_variables(1, "resnet50", seed=SEED + 1),
+                                     strict=True)
+    read = _h5_numbers(full, time.monotonic() - t0)
+    got, want = dict(leaves(loaded)), dict(leaves(variables))
+    require(got.keys() == want.keys(), "the .h5 round trip lost or added leaves")
+    unequal = [p for p, v in want.items()
+               if got[p].dtype != v.dtype or not np.array_equal(got[p], v)]
+    require(not unequal, f"the .h5 round trip changed {unequal[:3]}")
+    del loaded, got
+
+    # 2. the backbone alone, where --imagenet-weights looks
+    backbone_map = {k: v for k, v in keras_name_map().items() if v[0] == "backbone"}
+    imagenet = PRETRAINED_DIR / "ResNet-50-model.keras.h5"
+    export_random_keras_weights(str(imagenet), variables, name_map=backbone_map)
+    n_backbone = sum(1 for p, _ in want.items() if p[1] == "backbone")
+    require(str(PRETRAINED_DIR) in weights.IMAGENET_SEARCH_DIRS,
+            f"TDNET_PRETRAINED_DIR is not searched: {weights.IMAGENET_SEARCH_DIRS}")
+    del want
+
+    # 3. the warm-up on the card against the CPU
+    wpages = synthetic_pages(4, 0, SEED + 11, sizes=(PARITY_PAGE, None))
+    batches = [np.stack([p.astype(np.uint8) for p in wpages[i:i + 2]]) for i in (0, 2)]
+    stats = {}
+    with no_tf32():
+        for name, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+            t0 = time.monotonic()
+            out = weights.bn_warmup(RetinaNet(1), variables, iter(batches), num_batches=2,
+                                    verbose=False, device=d)
+            stats[name] = (dict(leaves(out["batch_stats"])), time.monotonic() - t0)
+    warm_worst = 0.0
+    for p, c in stats["cpu"][0].items():
+        g = stats["gpu"][0][p]
+        warm_worst = max(warm_worst, float((np.abs(g - c) / np.maximum(
+            np.abs(c), np.abs(c).max())).max()))
+    require(warm_worst <= WARMUP_TOL, f"bn_warmup CUDA vs CPU: {warm_worst:.3g} > {WARMUP_TOL}")
+    warm_s = {k: v[1] for k, v in stats.items()}
+    del stats, variables
+
+    # 4. the train CLI from the ImageNet lookup, warmed up, augmented
+    tb, metrics = work / "tb", work / "metrics.jsonl"
+    argv = ["--bf16", "--device-normalize", "--imagenet-weights", "--bn-warmup", "2",
+            "--random-transform", "--tensorboard-dir", str(tb), "--evaluation",
+            "--steps", "0", "--epochs", str(TRAIN_CLI_EPOCHS),
+            "--batch-size", str(TRAIN_CLI_BATCH), "--log-every", "1",
+            "--image-min-side", str(MIN_SIDE), "--image-max-side", str(MAX_SIDE),
+            "--no-snapshots", "--metrics-path", str(metrics), "--device", dev.type,
+            "csv", str(pages_dir / "annotations.csv"), str(pages_dir / "classes.csv"),
+            "--val-annotations", str(pages_dir / "val.csv")]
+    counters = {**_all_counters(), "stem_bwd": stem.BWD_LAUNCHES}
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        for c in counters.values():
+            c.reset()
+        sync(dev)
+        t0 = time.monotonic()
+        rc = train.main(argv)
+        sync(dev)
+        train_s = time.monotonic() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    out = log.getvalue().splitlines()
+    require(rc == 0, f"train exit code {rc}: {out[-5:]}")
+    summary = f"keras h5 import: matched {n_backbone} weights from {imagenet}"
+    require(summary in out, f"no import summary {summary!r}: {out[:6]}")
+    warm_line = "bn_warmup: re-estimated BatchNorm statistics from 2 batches"
+    require(warm_line in out, f"no warm-up line: {out[:8]}")
+    total_steps = TRAIN_CLI_PAGES // TRAIN_CLI_BATCH * TRAIN_CLI_EPOCHS
+    require(launches["stem"] >= total_steps and launches["stem_bwd"] >= total_steps
+            and launches["nms"] > 0, f"the train CLI skipped a kernel: {launches}")
+    recs = [json.loads(x) for x in metrics.read_text().splitlines()]
+    losses = [r["loss"] for r in recs if "step" in r]
+    require(len(losses) == total_steps and np.isfinite(losses).all(),
+            f"step losses {losses}")
+    (event_file,) = tb.iterdir()
+    events = read_events(str(event_file))
+    require(events[0]["file_version"] == "brain.Event:2", "no file_version event")
+    scalars = sorted((e["step"], v["tag"], v["value"]) for e in events[1:] for v in e["values"])
+    expected = sorted(
+        (int(r.get("step", r.get("epoch", 0))), k, float(np.float32(v)))
+        for r in recs for k, v in r.items()
+        if k != "step" and isinstance(v, (int, float)))
+    require(scalars == expected, f"event file {scalars[:4]} != JSONL {expected[:4]}")
+
+    # 5. the evaluate CLI on the full .h5
+    for c in counters.values():
+        c.reset()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(log):
+        rc_eval = evaluate.main(["--bf16", "--image-min-side", str(MIN_SIDE),
+                                 "--image-max-side", str(MAX_SIDE), "--device", dev.type,
+                                 "csv", str(pages_dir / "val.csv"),
+                                 str(pages_dir / "classes.csv"), str(full)])
+    sync(dev)
+    eval_s = time.monotonic() - t0
+    eval_launches = {k: c.count for k, c in counters.items()}
+    printed = log.getvalue().splitlines()
+    require(rc_eval == 0 and printed[-1].startswith("mAP: "), f"evaluate: {printed[-3:]}")
+    require(eval_launches["nms"] > 0, f"evaluate skipped the NMS kernel: {eval_launches}")
+    shutil.rmtree(PRETRAINED_DIR)
+    full.unlink()
+    emit({"phase": "train_cli_init", "ok": True, "model": "resnet50 retinanet, 1 class",
+          "h5_write": write, "h5_read": read, "h5_round_trip": "bit-equal (strict)",
+          "imagenet_weights": str(imagenet.relative_to(ROOT)),
+          "backbone_weights_matched": n_backbone,
+          "warmup_cuda_vs_cpu_max_rel": warm_worst, "warmup_tol": WARMUP_TOL,
+          "warmup_s": warm_s, "dtype": "bfloat16", "steps": total_steps,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "epoch_mAP": [r["mAP"] for r in recs if "mAP" in r],
+          "tensorboard_scalars": len(scalars), "launches": launches,
+          "evaluate_launches": eval_launches, "evaluate_mAP": printed[-1],
+          "train_s": train_s, "evaluate_s": eval_s,
+          "seconds": time.monotonic() - t_phase})
+    return {k: launches[k] + eval_launches[k] for k in launches}
+
+
 def _timed_predict(pred, pages, counters, dev):
     """One predict_batch with the launch counters and the predictor's
     host/dispatch counters set to 0 just before it and read just after."""
@@ -2181,6 +2382,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # read when tdnet_torch.train.weights is imported, as in the reference
+    os.environ["TDNET_PRETRAINED_DIR"] = str(PRETRAINED_DIR)
     phase = "device"
     try:
         import torch
@@ -2203,6 +2406,8 @@ def main() -> int:
         phase_train_parity(dev)
         phase = "train_cli"
         train_cli_launches = phase_train_cli(dev)
+        phase = "train_cli_init"
+        init_launches = phase_train_cli_init(dev)
         phase = "predict_soft"
         soft_launches = phase_predict_soft(dev)
         phase = "predict_r101"
@@ -2219,10 +2424,10 @@ def main() -> int:
         return 1
 
     # launches: the main paths' runs (predict's two routes, training, the
-    # train CLI, config 5, config 4, serving, the CLIs); conv1x1 (B7) is
+    # train CLI and its initial-weight flags, config 5, config 4, serving, the CLIs); conv1x1 (B7) is
     # wired into no model, in the JAX package too, so no path launches it
-    runs = (launches, train_launches, train_cli_launches, soft_launches,
-            r101_launches, serve_launches, cli_launches)
+    runs = (launches, train_launches, train_cli_launches, init_launches,
+            soft_launches, r101_launches, serve_launches, cli_launches)
     sources = {
         "ingest": ("tdnet_torch/csrc/ingest.cu", "tdnet/ops/pallas_ingest.py:137"),
         "stem": ("tdnet_torch/csrc/stem.cu", "tdnet/ops/pallas_stem.py:676"),

@@ -3,11 +3,11 @@
     python -m tdnet_torch.bin.evaluate csv annotations.csv classes.csv model.tdn
 
 Prints per-class AP and the (weighted) mAP in the reference's format.
-``model`` is a ``.tdn`` bundle or a checkpoint directory written by
-``tdnet_torch/train/checkpoint.py`` (then ``--backbone`` and the dataset's
-classes describe the architecture). Runs on CUDA unless ``--device cpu``.
-Not ported yet: keras ``.h5`` weights (ROADMAP A12), ``--distributed``
-(A16) and ``--coco`` (A14); each raises.
+``model`` is a ``.tdn`` bundle, a checkpoint directory written by
+``tdnet_torch/train/checkpoint.py`` or a keras-retinanet ``.h5`` (for
+these two, ``--backbone`` and the dataset's classes describe the
+architecture). Runs on CUDA unless ``--device cpu``. Not ported yet:
+``--distributed`` (A16) and ``--coco`` (A14); each raises.
 """
 
 from __future__ import annotations
@@ -23,14 +23,17 @@ from tdnet_torch.models.retinanet import RetinaNet
 from tdnet_torch.ops.anchors import AnchorParameters
 from tdnet_torch.train.checkpoint import Checkpointer
 from tdnet_torch.train.predictor import Predictor
+from tdnet_torch.train.weights import load_initial_weights
 from tdnet_torch.utils.eval import evaluate
+from tdnet_torch.weights import random_variables
 
 __all__ = ["parse_args", "load_any_model", "main"]
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Evaluate a tdnet_torch RetinaNet.")
-    add_dataset_args(parser, trailing=[("model", ".tdn bundle or checkpoint directory")])
+    add_dataset_args(parser, trailing=[("model", ".tdn bundle, checkpoint directory "
+                                                 "or keras .h5")])
     parser.add_argument("--backbone", default="resnet50", type=str)
     parser.add_argument("--score-threshold", default=0.05, type=float)
     parser.add_argument("--iou-threshold", default=0.5, type=float)
@@ -69,10 +72,17 @@ def parse_args(argv=None):
 
 
 def load_any_model(path, args, num_classes, dtype):
-    """A .tdn bundle or a checkpoint directory -> (model, variables or None
-    (the model holds its weights), anchors, meta)."""
+    """A .tdn bundle, a checkpoint directory or a keras .h5 -> (model,
+    variables or None (the model holds its weights), anchors, meta)."""
     if path.endswith((".h5", ".hdf5")):
-        raise NotImplementedError("keras .h5 weights are not ported yet (ROADMAP A12)")
+        # the template is the port's random init; the file's weights replace
+        # what matches by name and shape, as the reference's loader does
+        anchors = anchor_params_from_args(args)
+        n_anchors = (anchors or AnchorParameters.default).num_anchors
+        model = RetinaNet(num_classes, args.backbone, dtype=dtype, num_anchors=n_anchors)
+        template = random_variables(num_classes, args.backbone, num_anchors=n_anchors)
+        variables = load_initial_weights(path, template, backbone_name=args.backbone)
+        return model, variables, anchors, None
     if os.path.isdir(path):
         anchors = anchor_params_from_args(args)
         model = RetinaNet(num_classes, args.backbone, dtype=dtype,

@@ -10,20 +10,30 @@ cpu``; with ``--device-normalize`` a ResNet trains through the fused
 ingest+stem kernels (forward and backward), ``--no-fused-stem`` takes the
 normalize kernel and cuDNN instead.
 
-Initial weights: ``--weights`` takes a ``.tdn`` bundle or one of the
-port's checkpoint directories (a reference orbax snapshot converts to a
-``.tdn`` with the reference's ``convert_model``). Without it the model
-starts from ``tdnet_torch.weights.random_variables(seed=--seed)``, which
-does not reproduce the reference's ``jax.random`` init: only runs from the
-same weights file match the reference's. ``--snapshot`` resumes one of the
-port's checkpoint directories in full (weights, Adam moments, step and
-learning rate) and replays the loader's epochs, as the reference does.
+Initial weights: ``--weights`` takes a ``.tdn`` bundle, a keras ``.h5``
+(a keras-retinanet snapshot or a keras-resnet ImageNet backbone, read by
+the port's own HDF5 reader) or one of the port's checkpoint directories (a
+reference orbax snapshot converts to a ``.tdn`` with the reference's
+``convert_model``). Without it, ``--imagenet-weights`` looks for the
+backbone's keras-resnet ImageNet file in local directories
+(``train/weights.py`` ``IMAGENET_SEARCH_DIRS``; it never downloads), and
+without either the model starts from
+``tdnet_torch.weights.random_variables(seed=--seed)``, which does not
+reproduce the reference's ``jax.random`` init: only runs from the same
+weights file match the reference's. ``--bn-warmup N`` then re-estimates
+the frozen BatchNorm statistics from the loader's first N batches.
+``--snapshot`` resumes one of the port's checkpoint directories in full
+(weights, Adam moments, step and learning rate; no warm-up) and replays
+the loader's epochs, as the reference does.
+
+``--random-transform`` draws the reference's affine augmentation for each
+image (``data/transform.py``); ``--tensorboard-dir`` writes TensorBoard
+scalars of every metrics record (``train/events.py``).
 
 Not ported yet; each parses, then raises naming its ROADMAP item:
-``--random-transform`` and ``--tensorboard-dir`` (A11); ``.h5`` weights,
-``--imagenet-weights`` and ``--bn-warmup`` (A12); ``--coco-evaluation``
-(A14.4); ``--spatial``, ``--tensor-parallel``, ``--zero``, ``--pipeline``,
-``--microbatches`` and ``--distributed`` (A16).
+``--coco-evaluation`` (A14.4); ``--spatial``, ``--tensor-parallel``,
+``--zero``, ``--pipeline``, ``--microbatches`` and ``--distributed``
+(A16).
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ from tdnet_torch.train.loop import (RSS_BUDGET_EXIT_CODE, ReduceLROnPlateau,
                                     RssBudgetExceeded, fit)
 from tdnet_torch.train.predictor import Predictor
 from tdnet_torch.train.step import create_optimizer, create_train_state, make_train_step
-from tdnet_torch.train.weights import load_initial_weights
+from tdnet_torch.train.weights import (bn_warmup, imagenet_weights_or_explain,
+                                       load_initial_weights)
 from tdnet_torch.utils.eval import evaluate
 from tdnet_torch.weights import random_variables, variables_from_torch_state
 
@@ -71,21 +82,24 @@ def parse_args(argv=None):
     parser.add_argument("--snapshot", default=None, type=str,
                         help="resume from one of the port's checkpoint directories")
     parser.add_argument("--weights", default=None, type=str,
-                        help="initialize weights from a .tdn bundle or one of "
-                             "the port's checkpoint directories (a reference "
-                             "orbax snapshot: convert it to .tdn with the "
-                             "reference's convert_model); keras .h5: not "
-                             "ported yet (ROADMAP A12)")
+                        help="initialize weights from a .tdn bundle, a keras "
+                             ".h5/.hdf5 or one of the port's checkpoint "
+                             "directories (a reference orbax snapshot: convert "
+                             "it to .tdn with the reference's convert_model)")
     parser.add_argument("--imagenet-weights", action="store_true",
-                        help="not ported yet (ROADMAP A12)")
+                        help="without --weights: load the backbone's keras-resnet "
+                             "ImageNet .h5 from ~/.keras/models, "
+                             "$TDNET_PRETRAINED_DIR or ./pretrained (never "
+                             "downloaded)")
     parser.add_argument("--bn-warmup", default=0, type=int, metavar="N",
-                        help="not ported yet (ROADMAP A12)")
+                        help="re-estimate the frozen BatchNorm statistics from "
+                             "N batches before training (not with --snapshot)")
     parser.add_argument("--model-path", default=None, type=str,
                         help="write a deployable .tdn at the end")
     parser.add_argument("--no-snapshots", dest="snapshots", action="store_false")
     parser.add_argument("--freeze-backbone", action="store_true")
     parser.add_argument("--random-transform", action="store_true",
-                        help="not ported yet (ROADMAP A11)")
+                        help="random affine augmentation (the reference's ranges)")
     parser.add_argument("--config", default=None, type=str,
                         help="anchor parameters INI (reference-compatible)")
     parser.add_argument("--image-min-side", default=800, type=int)
@@ -116,7 +130,7 @@ def parse_args(argv=None):
     parser.add_argument("--log-every", default=50, type=int)
     parser.add_argument("--metrics-path", default=None, type=str)
     parser.add_argument("--tensorboard-dir", default=None, type=str,
-                        help="not ported yet (ROADMAP A11)")
+                        help="write TensorBoard scalars of every metrics record")
     parser.add_argument("--profile-dir", default=None, type=str,
                         help="capture a torch.profiler trace of the second epoch")
     parser.add_argument("--nan-check", action="store_true",
@@ -165,13 +179,7 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     """Flags whose parts come later raise, naming their ROADMAP item; at
     their defaults they pass."""
-    weights = args.weights or ""
     for flag, used, item in (
-        ("--random-transform", args.random_transform, "A11"),
-        ("--tensorboard-dir", args.tensorboard_dir is not None, "A11"),
-        ("keras .h5 --weights", weights.endswith((".h5", ".hdf5")), "A12"),
-        ("--imagenet-weights", args.imagenet_weights, "A12"),
-        ("--bn-warmup", args.bn_warmup > 0, "A12"),
         ("--coco-evaluation", args.coco_evaluation, "A14.4"),
         ("--spatial", args.spatial > 1, "A16"),
         ("--tensor-parallel", args.tensor_parallel > 1, "A16"),
@@ -224,6 +232,7 @@ def main(argv=None) -> int:
         max_boxes=args.max_boxes,
         preprocess_mode=bb.preprocess_mode,
         device_normalize=args.device_normalize,
+        random_transform=args.random_transform,
         seed=args.seed,
         workers=args.workers,
     ))
@@ -232,13 +241,22 @@ def main(argv=None) -> int:
             args.steps = loader.steps_per_epoch()
             print(f"--steps 0: using one dataset pass = {args.steps} steps/epoch")
 
-        # initial weights (reference: create_models --weights; --snapshot below
-        # takes precedence)
+        # initial weights (reference: create_models --weights /
+        # --imagenet-weights; --snapshot below takes precedence over both)
         variables = random_variables(train_ds.num_classes(), args.backbone,
                                      seed=args.seed, num_anchors=n_anchors)
-        if args.weights:
-            variables = load_initial_weights(args.weights, variables,
+        weights_path = args.weights
+        if weights_path is None and args.imagenet_weights:
+            weights_path = imagenet_weights_or_explain(args.backbone)
+        if weights_path:
+            variables = load_initial_weights(weights_path, variables,
                                              backbone_name=args.backbone)
+        if args.bn_warmup > 0 and not args.snapshot:
+            # drawn from the loader's own stream, as the reference's warm-up
+            # is: it advances the shuffle and transform draws
+            variables = bn_warmup(model, variables, loader.forever(),
+                                  num_batches=args.bn_warmup,
+                                  preprocess_mode=bb.preprocess_mode, device=device)
         state = create_train_state(model, variables,
                                    optimizer=create_optimizer(args.lr, args.clipnorm),
                                    freeze_backbone=args.freeze_backbone, device=device)
@@ -311,6 +329,7 @@ def main(argv=None) -> int:
                     patience=args.reduce_lr_patience,
                 ),
                 metrics_path=args.metrics_path,
+                tensorboard_dir=args.tensorboard_dir,
                 log_every=args.log_every,
                 initial_epoch=initial_epoch,
                 profile_dir=args.profile_dir,

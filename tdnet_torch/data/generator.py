@@ -17,6 +17,14 @@ The Dataset protocol is the reference's: ``size()``, ``load_image(i)``
 (BGR array), ``load_annotations(i)`` ({"bboxes" (m, 4), "labels" (m,)}),
 ``image_aspect_ratio(i)``, ``num_classes()``, and optionally
 ``max_annotations()``.
+
+With ``random_transform`` each image is warped by a random affine
+transform (the reference's ``--random-transform`` ranges, ``transform.py``)
+before it is normalized and resized, and its boxes go through
+``transform_aabb`` and are clipped to the image again. The transforms come
+from their own stream, seeded with ``seed + 1`` and drawn one a local
+image in order before a batch's loads start, so worker threads do not race
+for it and a run is reproducible.
 """
 
 from __future__ import annotations
@@ -24,12 +32,15 @@ from __future__ import annotations
 import math
 import warnings
 import weakref
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from tdnet_torch.data.image import CAFFE_MEAN_BGR, preprocess_image, resize_image
+from tdnet_torch.data.transform import (TransformParameters, adjust_transform_for_image,
+                                        apply_transform, random_transform_generator,
+                                        transform_aabb)
 
 __all__ = ["LoaderConfig", "BatchLoader", "default_buckets", "pick_bucket"]
 
@@ -71,9 +82,9 @@ class LoaderConfig:
     buckets: Optional[List[Tuple[int, int]]] = None
     shuffle: bool = True
     seed: int = 0
-    # the reference's --random-transform warp needs cv2, which the GPU
-    # machine lacks: ROADMAP A11 (slice 4)
+    # augmentation (the reference's --random-transform)
     random_transform: bool = False
+    transform_parameters: TransformParameters = field(default_factory=TransformParameters)
     # multi-host slicing of every global batch (ROADMAP A16 runs it)
     process_index: int = 0
     process_count: int = 1
@@ -92,10 +103,6 @@ class BatchLoader:
     _densest_cache = weakref.WeakKeyDictionary()
 
     def __init__(self, dataset, config: LoaderConfig):
-        if config.random_transform:
-            raise NotImplementedError(
-                "random_transform needs the reference's cv2 warp, which the "
-                "GPU machine lacks: ROADMAP A11 (slice 4)")
         self.dataset = dataset
         self.config = config
         self._rng = np.random.RandomState(config.seed)
@@ -107,6 +114,20 @@ class BatchLoader:
 
             self._pool = ThreadPoolExecutor(
                 max_workers=config.workers, thread_name_prefix="tdnet-loader")
+        self._transform_gen = None
+        if config.random_transform:  # the reference's --random-transform ranges
+            self._transform_gen = random_transform_generator(
+                min_rotation=-0.1,
+                max_rotation=0.1,
+                min_translation=(-0.1, -0.1),
+                max_translation=(0.1, 0.1),
+                min_shear=-0.1,
+                max_shear=0.1,
+                min_scaling=(0.9, 0.9),
+                max_scaling=(1.1, 1.1),
+                flip_x_chance=0.5,
+                prng=np.random.RandomState(config.seed + 1),
+            )
         self._bucket_of: dict = {}
         if config.max_boxes is not None:
             self.max_boxes = int(config.max_boxes)
@@ -163,9 +184,10 @@ class BatchLoader:
             self._bucket_of[idx] = bkt
         return bkt
 
-    def _load_entry(self, index: int):
-        """Load, filter boxes, resize, normalize one image: (image, boxes
-        (m, 4) f32, labels (m,) i32, scale)."""
+    def _load_entry(self, index: int, transform=None):
+        """Load, filter boxes, warp by ``transform`` (drawn beforehand),
+        resize, normalize one image: (image, boxes (m, 4) f32, labels (m,)
+        i32, scale)."""
         image = self.dataset.load_image(index)
         ann = self.dataset.load_annotations(index)
         boxes = ann["bboxes"].astype(np.float64).copy()
@@ -176,6 +198,15 @@ class BatchLoader:
                     & (boxes[:, 0] >= 0) & (boxes[:, 1] >= 0)
                     & (boxes[:, 2] <= w) & (boxes[:, 3] <= h))
             boxes, labels = boxes[keep], labels[keep]
+        if transform is not None:
+            params = self.config.transform_parameters
+            t = adjust_transform_for_image(transform, image, params.relative_translation)
+            image = apply_transform(t, image, params)
+            for i in range(len(boxes)):
+                boxes[i, :] = transform_aabb(t, boxes[i, :])
+            h, w = image.shape[:2]
+            boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0, w)
+            boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0, h)
         if not self.config.device_normalize:
             image = preprocess_image(image, mode=self.config.preprocess_mode)
         image, scale = resize_image(image, min_side=self.config.min_side,
@@ -252,10 +283,12 @@ class BatchLoader:
     def epoch(self) -> Iterator[dict]:
         """One epoch of this process's batches."""
         for bucket, chunk in self.local_batches():
+            transforms = [next(self._transform_gen) if self._transform_gen else None
+                          for _ in chunk]
             if self._pool is not None:
-                entries = list(self._pool.map(self._load_entry, chunk))
+                entries = list(self._pool.map(self._load_entry, chunk, transforms))
             else:
-                entries = [self._load_entry(i) for i in chunk]
+                entries = [self._load_entry(i, t) for i, t in zip(chunk, transforms)]
             yield self._assemble(entries, chunk, bucket)
 
     def forever(self) -> Iterator[dict]:
@@ -263,10 +296,14 @@ class BatchLoader:
             yield from self.epoch()
 
     def skip_epochs(self, n: int) -> None:
-        """Advance the shuffle RNG past n epochs without loading pixels, so a
-        resumed run sees the batches the unbroken run would have."""
+        """Advance the shuffle and transform streams past n epochs without
+        loading pixels (one shuffle an epoch, one transform a local image),
+        so a resumed run sees the batches the unbroken run would have."""
         for _ in range(max(0, int(n))):
-            self._global_batches()
+            for _, chunk in self.local_batches():
+                if self._transform_gen is not None:
+                    for _ in chunk:
+                        next(self._transform_gen)
 
     def close(self) -> None:
         if self._pool is not None:

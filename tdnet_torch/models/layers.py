@@ -10,12 +10,17 @@ rounded to the activation dtype where they are used, as flax's
 
 from __future__ import annotations
 
+import contextlib
+import functools
+from typing import Dict, Iterator, List, Tuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["FrozenBatchNorm", "Conv2d", "same_pads", "resize_nearest_like"]
+__all__ = ["FrozenBatchNorm", "recording_bn_inputs", "Conv2d", "same_pads",
+           "resize_nearest_like"]
 
 
 class FrozenBatchNorm(nn.Module):
@@ -40,6 +45,33 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv, off = self.folded()
         return x * inv.to(x.dtype)[:, None, None] + off.to(x.dtype)[:, None, None]
+
+
+def _record_input(sink: list, module, args) -> None:
+    x = args[0].float()
+    sink.append((x.mean(dim=(0, 2, 3)), x.square().mean(dim=(0, 2, 3))))
+
+
+@contextlib.contextmanager
+def recording_bn_inputs(
+        model: nn.Module) -> Iterator[Dict[str, List[Tuple[torch.Tensor, torch.Tensor]]]]:
+    """Within the block, every FrozenBatchNorm of ``model`` records its
+    input's float32 mean and mean of squares over the batch and spatial
+    axes, a (mean, sq_mean) pair a call, under its module name (the
+    counterpart of the guarded ``sow`` of ``tdnet/models/layers.py``). The
+    hooks exist only inside the block, so other calls pay nothing."""
+    records: Dict[str, list] = {}
+    handles = []
+    try:
+        for name, module in model.named_modules():
+            if isinstance(module, FrozenBatchNorm):
+                records[name] = []
+                handles.append(module.register_forward_pre_hook(
+                    functools.partial(_record_input, records[name])))
+        yield records
+    finally:
+        for handle in handles:
+            handle.remove()
 
 
 def same_pads(n: int, k: int, s: int):

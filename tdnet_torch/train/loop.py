@@ -4,7 +4,8 @@ eval, the counterpart of ``tdnet/train/loop.py``.
 Per-epoch checkpoints, resume from an epoch, per-epoch eval every
 ``eval_every`` epochs (and always after the last), Keras
 ``ReduceLROnPlateau(monitor='loss', factor=0.1, patience=2)``, and step
-metrics (loss parts, lr, images/s) to stdout and JSONL. Metrics are summed
+metrics (loss parts, lr, images/s) to stdout, JSONL and optionally
+TensorBoard event files. Metrics are summed
 on the device and read back only at log time, so the host does not wait for
 the device on every step.
 """
@@ -18,6 +19,8 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+
+from tdnet_torch.train.events import EventFileWriter
 
 __all__ = ["ReduceLROnPlateau", "MetricsWriter", "EpochCloser",
            "RssBudgetExceeded", "RSS_BUDGET_EXIT_CODE", "fit",
@@ -81,24 +84,31 @@ class ReduceLROnPlateau:
 
 
 class MetricsWriter:
-    """JSONL step and epoch metrics. TensorBoard scalars are not ported:
-    the reference writes them through tensorflow (ROADMAP A11, slice 4)."""
+    """JSONL step and epoch metrics, and TensorBoard scalars of each
+    record's numeric values (``train/events.py``) at its step, else its
+    epoch."""
 
     def __init__(self, path: Optional[str] = None,
                  tensorboard_dir: Optional[str] = None):
-        if tensorboard_dir:
-            raise NotImplementedError(
-                "tensorboard_dir is not ported (ROADMAP A11, slice 4)")
         self._f = open(path, "a") if path else None
+        self._tb = EventFileWriter(tensorboard_dir) if tensorboard_dir else None
 
     def write(self, record: dict) -> None:
         if self._f is not None:
             self._f.write(json.dumps(record) + "\n")
             self._f.flush()
+        if self._tb is not None:
+            step = int(record.get("step", record.get("epoch", 0)))
+            for k, v in record.items():
+                if isinstance(v, (int, float)) and k != "step":
+                    self._tb.scalar(k, v, step)
+            self._tb.flush()
 
     def close(self) -> None:
         if self._f is not None:
             self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class EpochCloser:

@@ -48,7 +48,9 @@ def torch_state_from_variables(variables: Mapping) -> dict:
                         f"{'/'.join(path)}: only 4-D conv kernels are bridged")
                 arr, name = arr.transpose(3, 2, 0, 1), "weight"
             key = ".".join(path[:-1] + (name,))
-            state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            # native byte order: an .h5 may hold big-endian arrays
+            state[key] = torch.from_numpy(
+                np.ascontiguousarray(arr, arr.dtype.newbyteorder("=")))
     return state
 
 

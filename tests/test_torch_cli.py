@@ -485,8 +485,13 @@ def test_predict_and_evaluate_clis_on_cpu(tiny_bundle, tmp_path, capsys):
     assert capsys.readouterr().out.splitlines() == lines
 
 
-def test_cli_options_the_port_does_not_run_yet(tiny_bundle):
+def test_cli_options_the_port_does_not_run_yet(tiny_bundle, tmp_path, capsys):
+    """--distributed, --coco and other datasets raise naming their ROADMAP
+    items; a keras .h5 model (ported) evaluates as the .tdn of the same
+    weights does."""
     from tdnet_torch.bin import evaluate, predict
+    from tdnet_torch.compat.keras_import import export_random_keras_weights
+    from tdnet_torch.models.io import load_model
 
     csv_args = ["csv", str(tiny_bundle / "annotations.csv"), str(tiny_bundle / "classes.csv")]
     model = str(tiny_bundle / "model.tdn")
@@ -495,10 +500,19 @@ def test_cli_options_the_port_does_not_run_yet(tiny_bundle):
         evaluate.main([*cpu, "--distributed", "x:1,2,0", *csv_args, model])
     with pytest.raises(NotImplementedError, match="A14"):
         evaluate.main([*cpu, "--coco", *csv_args, model])
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(FileNotFoundError):  # .h5 is ported: as h5py, a missing file
         evaluate.main([*cpu, *csv_args, "weights.h5"])
     with pytest.raises(NotImplementedError, match="A14"):
         evaluate.main([*cpu, "coco", "/nowhere", model])
     for main, argv in ((predict.main, [model, "p.png"]), (evaluate.main, [*csv_args, model])):
         with pytest.raises(SystemExit):  # --no-pallas on CUDA: argparse error
             main(["--no-pallas", *argv])
+    export_random_keras_weights(str(tmp_path / "model.h5"), load_model(model)[1])
+    size = ["--image-min-side", "64", "--image-max-side", "64", *cpu]
+    capsys.readouterr()
+    assert evaluate.main([*size, *csv_args, model]) == 0
+    want = capsys.readouterr().out.splitlines()
+    assert evaluate.main([*size, *csv_args, str(tmp_path / "model.h5")]) == 0
+    got = capsys.readouterr().out.splitlines()
+    assert got[0].startswith("keras h5 import: matched ")
+    assert got[1:] == want

@@ -81,19 +81,21 @@ def test_batch_loader_matches_reference(device_normalize):
 
 
 def test_batch_loader_options():
-    """Auto max_boxes sizes to the densest image; random_transform raises
-    (its warp needs cv2); worker threads give the same batches."""
+    """Auto max_boxes sizes to the densest image; worker threads give the
+    same batches, with random_transform too (the transforms are drawn
+    before the loads; tests/test_torch_transform.py holds them against the
+    reference's)."""
     ds = MemoryDataset(4, dense=70)
     assert BatchLoader(ds, LoaderConfig(**SIDES)).max_boxes == 72
-    with pytest.raises(NotImplementedError, match="A11"):
-        BatchLoader(ds, LoaderConfig(random_transform=True, **SIDES))
-    one = list(BatchLoader(ds, LoaderConfig(batch_size=2, **SIDES)).epoch())
-    loader = BatchLoader(ds, LoaderConfig(batch_size=2, workers=3, **SIDES))
-    many = list(loader.epoch())
-    loader.close()
-    for a, b in zip(one, many):
-        for k in a:
-            np.testing.assert_array_equal(a[k], b[k])
+    for random_transform in (False, True):
+        kw = dict(batch_size=2, random_transform=random_transform, **SIDES)
+        one = list(BatchLoader(ds, LoaderConfig(**kw)).epoch())
+        loader = BatchLoader(ds, LoaderConfig(workers=3, **kw))
+        many = list(loader.epoch())
+        loader.close()
+        for a, b in zip(one, many):
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_prefetcher_packs_and_moves_batches():
@@ -135,11 +137,33 @@ def test_reduce_lr_on_plateau_matches_reference():
     assert lr_port < 1e-3
 
 
-def test_metrics_writer_has_no_tensorboard():
-    from tdnet_torch.train.loop import MetricsWriter
+def test_metrics_writer_has_no_tensorboard(tmp_path):
+    """TensorBoard scalars without the tensorboard or tensorflow packages
+    (the GPU machine has neither): the writer makes the directory and an
+    event file of one scalar a numeric value, at the record's step;
+    tests/test_torch_events.py holds the file against the reference's."""
+    import subprocess
+    import sys
+    from pathlib import Path
 
-    with pytest.raises(NotImplementedError, match="A11"):
-        MetricsWriter(tensorboard_dir="tb")
+    code = f"""
+import sys
+from tdnet_torch.train.loop import MetricsWriter
+w = MetricsWriter(tensorboard_dir={str(tmp_path / "tb")!r})
+w.write({{"step": 3, "epoch": 0, "loss": 1.5, "name": "x"}})
+w.close()
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("tensorboard", "tensorflow"))
+assert not bad, bad
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr
+    from tdnet_torch.train.events import read_events
+
+    (path,) = (tmp_path / "tb").iterdir()
+    scalars = [(e["step"], v["tag"], v["value"]) for e in read_events(str(path))
+               for v in e["values"]]
+    assert scalars == [(3, "epoch", 0.0), (3, "loss", 1.5)]
 
 
 # ------------------------------------------------------ checkpoint + resume

@@ -206,7 +206,8 @@ def test_unported_tail_branches_raise():
 def test_port_imports_no_jax_pil_cv2_or_tdnet():
     """Every tdnet_torch module, the training and serving slices' included,
     and chip_smoke.py import in a fresh interpreter without pulling in jax,
-    flax, optax, orbax, PIL, cv2, msgpack or the tdnet package."""
+    flax, optax, orbax, PIL, cv2, msgpack, h5py, tensorflow, tensorboard or
+    the tdnet package."""
     code = """
 import importlib, pkgutil, sys
 import tdnet_torch
@@ -217,11 +218,13 @@ for name in ("ops.losses", "ops.targets", "ops.stem_vjp", "train.step",
              "train.loop", "train.checkpoint", "data.prefetch", "ops.soft_nms",
              "ops.block", "ops.conv1x1", "utils.msgpack", "models.io",
              "data.png", "data.csv_dataset", "utils.eval", "bin.predict",
-             "bin.evaluate", "bin.serve"):
+             "bin.evaluate", "bin.serve", "compat.hdf5", "compat.keras_import",
+             "data.transform", "train.events", "bin.train"):
     assert "tdnet_torch." + name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "PIL", "cv2", "msgpack", "tdnet"))
+                                    "PIL", "cv2", "msgpack", "tdnet", "h5py",
+                                    "tensorflow", "tensorboard"))
 print(len([n for n in sys.modules if n.startswith("tdnet_torch")]))
 assert not bad, bad
 """

@@ -3,10 +3,11 @@ reference's (``tdnet.bin.train``) on a tiny CSV dataset, on the CPU: three
 64x96 PNG pages with ruled tables, f32, batch 1, ``--steps 0`` (one pass,
 3 steps an epoch), 2 epochs, ``--evaluation`` on two of the pages, both
 runs from the same ``.tdn`` (the port's random init cannot reproduce the
-reference's ``jax.random`` one). Also the port alone: resume, ``--weights``
-with a mismatched head, the flags that are not ported yet, the RSS budget,
-``--nan-check``, and the backbone registry and the weight merge against
-``tdnet``'s."""
+reference's ``jax.random`` one); then both CLIs from a keras ``.h5`` with
+``--bn-warmup 2 --random-transform``. Also the port alone: resume,
+``--weights`` with a mismatched head, the flags that are not ported yet,
+the RSS budget, ``--nan-check``, and the backbone registry and the weight
+merge (``.tdn`` and ``.h5``) against ``tdnet``'s."""
 
 import ctypes
 import gc
@@ -164,10 +165,13 @@ def test_metrics_equal_reference(jax_run, port_run):
     """The same records with the same keys; every step's losses within
     LOSS_RTOL (the step records hold running means over the epoch), the
     same num_positive; each epoch's mAP within 1e-4."""
-    got, want = _records(port_run), _records(jax_run)
+    _assert_records_match(_records(port_run), _records(jax_run), steps=6)
+
+
+def _assert_records_match(got, want, steps):
     assert [sorted(r) for r in got] == [sorted(r) for r in want]
-    steps = [r for r in got if "step" in r]
-    assert [r["step"] for r in steps] == [1, 2, 3, 4, 5, 6]
+    step_records = [r for r in got if "step" in r]
+    assert [r["step"] for r in step_records] == list(range(1, steps + 1))
     for g, w in zip(got, want):
         assert g["epoch"] == w["epoch"]
         for key in ("loss", "classification_loss", "regression_loss",
@@ -179,7 +183,45 @@ def test_metrics_equal_reference(jax_run, port_run):
         if "mAP" in w:
             assert abs(g["mAP"] - w["mAP"]) <= 1e-4
             assert abs(g["weighted_mAP"] - w["weighted_mAP"]) <= 1e-4
-    assert np.isfinite([r["loss"] for r in steps]).all()
+    assert np.isfinite([r["loss"] for r in step_records]).all()
+
+
+@pytest.fixture(scope="module")
+def init_h5(data):
+    """init.tdn's variables as a keras .h5, written by the port."""
+    from tdnet_torch.compat.keras_import import export_random_keras_weights
+
+    path = data / "init.h5"
+    export_random_keras_weights(str(path), random_variables(1, "resnet50", seed=0))
+    return path
+
+
+def test_h5_warmup_and_transform_equal_reference(data, init_h5, runs, capsys):
+    """``--weights init.h5 --bn-warmup 2 --random-transform`` (f32, host
+    normalize, 1 epoch of 3 steps) through both CLIs: the same keras
+    import summary and warm-up line, and the step and epoch records as
+    test_metrics_equal_reference compares them. The warm-up draws its two
+    batches from the loader's stream, shuffle and transforms included, so
+    the steps after it see the same pages only if both loaders advanced
+    alike."""
+    from tdnet.bin.train import main as ref_main
+
+    def argv(out, *extra):
+        a = _argv(data, out, "--bn-warmup", "2", "--random-transform", "--no-snapshots",
+                  "--epochs", "1", *extra, evaluation=False)
+        a[a.index("--weights") + 1] = str(init_h5)
+        return a
+
+    capsys.readouterr()
+    assert ref_main(argv(runs / "h5_jax")) == 0
+    want = capsys.readouterr().out.splitlines()
+    assert train.main(argv(runs / "h5_port", "--device", "cpu")) == 0
+    got = capsys.readouterr().out.splitlines()
+    n_weights = len(list(_leaves(random_variables(1, "resnet50"))))
+    for line in (f"keras h5 import: matched {n_weights} weights from {init_h5}",
+                 "bn_warmup: re-estimated BatchNorm statistics from 2 batches"):
+        assert line in got and line in want, line
+    _assert_records_match(_records(runs / "h5_port"), _records(runs / "h5_jax"), steps=3)
 
 
 def test_snapshot_and_bundle_are_readable(data, port_run, capsys):
@@ -269,10 +311,11 @@ def test_weights_with_a_mismatched_head(data, two_class, runs, capsys):
 
 def test_load_initial_weights_equals_reference(two_class, port_run, capsys):
     """The port's merge against tdnet.train.weights.load_initial_weights on
-    the same template and .tdn: the same leaves and dtypes, the same
-    printed line. A port checkpoint directory loads its latest weights
+    the same template and .tdn, and on the same keras .h5 (the 2-class
+    weights, written by the port): the same leaves and dtypes, the same
+    printed lines. A port checkpoint directory loads its latest weights
     (the run's last snapshot, which its bundle also holds); other files
-    raise as the reference does, .h5 naming A12."""
+    raise as the reference does."""
     from tdnet.train.weights import load_initial_weights as ref_load
     from tdnet_torch.models.io import load_model
     from tdnet_torch.train.weights import load_initial_weights
@@ -295,8 +338,21 @@ def test_load_initial_weights_equals_reference(two_class, port_run, capsys):
     for p, value in _leaves(last):
         np.testing.assert_array_equal(from_dir[p], value)
 
-    with pytest.raises(NotImplementedError, match="A12"):
-        load_initial_weights("w.h5", template)
+    from tdnet_torch.compat.keras_import import export_random_keras_weights
+
+    h5 = str(two_class[0]).replace(".tdn", ".h5")
+    export_random_keras_weights(h5, two_class[1])
+    capsys.readouterr()
+    got = load_initial_weights(h5, template)
+    got_out = capsys.readouterr().out
+    want = ref_load(h5, template)
+    assert capsys.readouterr().out == got_out
+    assert "; 3 shape-skipped (e.g. " in got_out
+    got_leaves, want_leaves = dict(_leaves(got)), dict(_leaves(want))
+    assert got_leaves.keys() == want_leaves.keys()
+    for p, value in want_leaves.items():
+        assert got_leaves[p].dtype == np.asarray(value).dtype
+        np.testing.assert_array_equal(got_leaves[p], np.asarray(value))
     with pytest.raises(ValueError) as e_got:
         load_initial_weights("w.pkl", template)
     with pytest.raises(ValueError) as e_want:
@@ -305,12 +361,6 @@ def test_load_initial_weights_equals_reference(two_class, port_run, capsys):
 
 
 UNPORTED = [
-    (["--random-transform"], "A11"),
-    (["--tensorboard-dir", "tb"], "A11"),
-    (["--weights", "w.h5"], "A12"),
-    (["--weights", "w.hdf5"], "A12"),
-    (["--imagenet-weights"], "A12"),
-    (["--bn-warmup", "2"], "A12"),
     (["--coco-evaluation"], "A14.4"),
     (["--spatial", "2"], "A16"),
     (["--tensor-parallel", "2"], "A16"),
