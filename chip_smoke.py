@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``tdnet_torch/csrc/`` (into
 ``build/tdnet_torch/``), holds each kernel against its plain PyTorch version
 at the main paths' shapes and times both, and drives the port's main paths
 with random weights made from a seed, RetinaNet at full width and depth
-(ResNet-50, and ResNet-101 for config 4):
+(ResNet-50, ResNet-101 for config 4, and one model of each other backbone
+family):
 
 - batched page inference (``Predictor.predict_batch``, bf16, uint8 pages
   through the fused ingest+stem kernel, the NMS kernel in the deferred
@@ -27,6 +28,13 @@ with random weights made from a seed, RetinaNet at full width and depth
   stage's identity run through the fused bottleneck kernel), then
   CUDA-vs-CPU f32 detections at 512x512 and the f32 model with the kernel
   on and off;
+- the other backbone families (SE-ResNet-50 through the fused stem; VGG-16
+  in caffe mode, DenseNet-121 and MobileNet in tf mode through the normalize
+  kernel; all through the NMS kernel): the 16 pages in bf16, CUDA-vs-CPU
+  f32 detections at 512x512 and a ``.tdn`` round trip for each, 2 bf16
+  train steps of SE-ResNet-50 (the stem kernels, forward and backward) and
+  DenseNet-121 (the normalize kernel), and one f32 SE-ResNet-50 step on
+  CUDA against the CPU;
 - serving: a ResNet-50 ``.tdn`` written and read back by the port, behind
   ``tdnet_torch.bin.serve`` (bf16, device normalize, 32 concurrent
   ``.npy`` and PNG requests), then an f32 server against
@@ -122,6 +130,15 @@ CONV1X1_BURST = 10
 # chain scale bound it. The contracted-FMA control must fail the share.
 CONV1X1_BF16_LIMITS = {"share_equal": 0.999, "max_ulps_chain": 4.5}
 R101_SIDE, R101_PAGE, R101_PAGES = 1024, (1100, 1000), 16  # -> 1024x931, bucket 1024^2
+# the backbones phase: one RetinaNet of each other family, full width and
+# depth; CUDA-vs-CPU parity at 512x512 (pages of R101's parity), 2 bf16 train
+# steps at batch 2 of TRAIN_PAGE pages, one f32 SE-ResNet-50 step CUDA vs CPU
+BACKBONES = ("seresnet50", "vgg16", "densenet121", "mobilenet")
+BACKBONE_PARITY_SIDE = 512
+BACKBONE_LOGIT_STD = 0.5  # the class head's spread on the parity pages (_backbone_variables)
+BACKBONE_TRAIN = ("seresnet50", "densenet121")
+BACKBONE_TRAIN_BATCH, BACKBONE_TRAIN_STEPS = 2, 2
+BACKBONE_STEP_SIDES, BACKBONE_STEP_PAGE = (256, 256), (256, 256)
 SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_MAX_DELAY_MS = 32, 16, 50.0
 R101_PARITY_SIDE = 512
 # identity blocks of ResNet-101 (3, 4, 23, 3 blocks a stage), one launch each
@@ -1378,14 +1395,14 @@ def phase_parity(dev, variables):
     emit({"phase": "parity", "ok": True, **res})
 
 
-def _host_batch(pages, boxes, sides, batch_size):
+def _host_batch(pages, boxes, sides, batch_size, preprocess_mode="caffe"):
     """One BatchLoader batch (uint8 canvases, device_normalize) of pages
     whose resize scale is 1.0."""
     from tdnet_torch.data.generator import BatchLoader, LoaderConfig
 
     loader = BatchLoader(PageDataset(pages, boxes), LoaderConfig(
         batch_size=batch_size, min_side=sides[0], max_side=sides[1],
-        device_normalize=True, shuffle=False))
+        preprocess_mode=preprocess_mode, device_normalize=True, shuffle=False))
     require(loader.steps_per_epoch() == 1, "the pages span more than one batch")
     return loader
 
@@ -1532,6 +1549,18 @@ def phase_train_parity(dev):
     upstream of it by up to ~1%, at layers that depend on the summation
     order; P6/P7 get ~1e-6 of the other gradients, differences of much
     larger terms (tools/torch_grad_parity.py measures both against tdnet)."""
+    pages, boxes = synthetic_pages(2, 0, SEED + 3, sizes=(PARITY_PAGE, None),
+                                   with_boxes=True)
+    host = next(_host_batch(pages, boxes, PARITY_SIDES, 2).epoch())
+    res = _step_parity(dev, "resnet50", host)
+    emit({"phase": "train_parity", "ok": True, "pages": 2,
+          "bucket": list(PARITY_SIDES), "dtype": "float32", **res})
+
+
+def _step_parity(dev, backbone, host):
+    """One f32 fused-stem train step of a ``backbone`` RetinaNet (1 class,
+    random weights from the seed) on CUDA and on the CPU on the host batch,
+    held to phase_train_parity's bounds."""
     import numpy as np
     import torch
 
@@ -1540,13 +1569,10 @@ def phase_train_parity(dev):
                                         make_train_step)
     from tdnet_torch.weights import random_variables
 
-    pages, boxes = synthetic_pages(2, 0, SEED + 3, sizes=(PARITY_PAGE, None),
-                                   with_boxes=True)
-    host = next(_host_batch(pages, boxes, PARITY_SIDES, 2).epoch())
-    variables = random_variables(1, "resnet50", seed=SEED)
+    variables = random_variables(1, backbone, seed=SEED)
     runs = {}
     for name, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
-        model = RetinaNet(1)
+        model = RetinaNet(1, backbone)
         state = create_train_state(model, variables, device=d,
                                    optimizer=create_optimizer(1e-4, 1e6))
         step = make_train_step(model, num_classes=1, fused_stem=True)
@@ -1575,12 +1601,10 @@ def phase_train_parity(dev):
         ref2 += norms[n] ** 2
     total = float(np.sqrt(err2 / ref2))
     require(total <= 5e-3, f"whole gradient: rel Frobenius {total}")
-    emit({"phase": "train_parity", "ok": True, "pages": 2,
-          "bucket": list(PARITY_SIDES), "dtype": "float32",
-          "num_positive": gm["num_positive"], "loss_gpu": gm["loss"],
-          "loss_cpu": cm["loss"], "worst_metric_rel": worst_metric,
-          "worst_tensor": worst[0], "worst_tensor_rel_fro": worst[1],
-          "whole_grad_rel_fro": total, "tensors_compared": len(cg)})
+    return {"num_positive": gm["num_positive"], "loss_gpu": gm["loss"],
+            "loss_cpu": cm["loss"], "worst_metric_rel": worst_metric,
+            "worst_tensor": worst[0], "worst_tensor_rel_fro": worst[1],
+            "whole_grad_rel_fro": total, "tensors_compared": len(cg)}
 
 
 def phase_train_cli(dev):
@@ -2087,6 +2111,229 @@ def phase_predict_r101(dev):
     return launches
 
 
+def _backbone_variables(name, probe_pages, mode):
+    """(variables, the logits' standard deviation as drawn): random weights
+    of a ``name`` RetinaNet from the seed, the class head's bias at -2
+    (smoke_variables' rule) and its kernel scaled so that the logits on the
+    probe pages (resized to BACKBONE_PARITY_SIDE, f32 on the CPU) spread by
+    BACKBONE_LOGIT_STD around it, as ResNet-50's random trunk spreads them
+    by itself (~0.6). Some families' trunks, as drawn, leave the logits
+    nearly flat: their scores tie, and greedy NMS on ties picks by the last
+    bits of the sums, which differ between two correct devices."""
+    import numpy as np
+    import torch
+
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.ops.ingest import normalize_uint8_rows
+    from tdnet_torch.train.predictor import Predictor
+    from tdnet_torch.weights import random_variables
+
+    v = random_variables(1, name, seed=SEED)
+    head = v["params"]["classification_submodel"]["head"]
+    head["bias"][:] = -2.0
+    probe = Predictor(RetinaNet(1, name), v, device="cpu", device_preprocess=True,
+                      min_side=BACKBONE_PARITY_SIDE, max_side=BACKBONE_PARITY_SIDE,
+                      preprocess_mode=mode)
+    canvases = np.stack([probe._prepare(p)[0] for p in probe_pages])
+    b, h, w, _ = canvases.shape
+    with torch.inference_mode():
+        x = normalize_uint8_rows(torch.from_numpy(canvases.reshape(b * h, w * 3)), mode)
+        logits = probe.model(x.reshape(b, h, w, 3))["classification"]
+    drawn = float(logits.std())
+    head["kernel"] *= BACKBONE_LOGIT_STD / drawn
+    return v, drawn
+
+
+def _backbone_predict(dev, name, pages, buckets, scales):
+    """One family's inference: Predictor.predict_batch in bf16 on the 16
+    pages of the predict phase (a warm-up run that records the normalize
+    kernel's modes, then a timed run with the counters set to 0 just before
+    it and read just after), CUDA-vs-CPU f32 parity at 512x512, and a .tdn
+    round trip whose detections must be bit-equal."""
+    import numpy as np
+    import torch
+
+    import tdnet_torch.train.predictor as predictor_mod
+    from tdnet_torch.models import backbone
+    from tdnet_torch.models.io import load_model, save_model
+    from tdnet_torch.models.retinanet import RetinaNet, takes_fused_stem
+    from tdnet_torch.train.predictor import Predictor
+
+    mode = backbone(name).preprocess_mode
+    parity_pages = synthetic_pages(2, 0, SEED + 5, sizes=((550, 500), None))
+    variables, drawn_std = _backbone_variables(name, parity_pages, mode)
+    sides = dict(min_side=MIN_SIDE, max_side=MAX_SIDE, preprocess_mode=mode)
+    pred = Predictor(RetinaNet(1, name, dtype=torch.bfloat16), variables,
+                     device=dev, device_preprocess=True, **sides)
+    fused = takes_fused_stem(name)
+    require(pred.fused_stem is (fused and dev.type == "cuda"),
+            f"{name}: fused_stem {pred.fused_stem}")
+
+    modes = []
+    orig = predictor_mod.normalize_uint8_rows
+
+    def recording(rows, mode_, **kw):
+        modes.append(mode_)
+        return orig(rows, mode_, **kw)
+
+    predictor_mod.normalize_uint8_rows = recording
+    try:
+        pred.predict_batch(pages)  # warm-up
+    finally:
+        predictor_mod.normalize_uint8_rows = orig
+    counters = _all_counters()
+    out, elapsed, launches = _timed_predict(pred, pages, counters, dev)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+    n_det = check_detections(out, pages, buckets, scales)
+    if dev.type == "cuda":
+        if fused:
+            want = launches["stem"] >= 1 and launches["ingest"] == 0 and not modes
+        else:
+            want = (launches["ingest"] >= 1 and launches["stem"] == 0
+                    and set(modes) == {mode})
+        require(want and launches["nms"] >= 1,
+                f"{name}: launches {launches}, normalize modes {modes}")
+
+    small = dict(min_side=BACKBONE_PARITY_SIDE, max_side=BACKBONE_PARITY_SIDE,
+                 preprocess_mode=mode)
+    parity = _device_parity(
+        lambda d, thr: Predictor(RetinaNet(1, name), variables, device=d,
+                                 device_preprocess=True, score_threshold=thr, **small),
+        parity_pages, dev)
+
+    # the bundle: written, read back, the same detections bit for bit (bf16)
+    out_dir = ROOT / "build" / "chip_smoke" / "backbones"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    bundle = out_dir / f"{name}.tdn"
+    t0 = time.monotonic()
+    save_model(str(bundle), RetinaNet(1, name), variables,
+               inference_config={"preprocess_mode": mode})
+    model, loaded, meta = load_model(str(bundle), dtype=torch.bfloat16)
+    bundle_s = time.monotonic() - t0
+    require(model.backbone_name == name and meta["inference"]["preprocess_mode"] == mode,
+            f"{name}: bundle record {model.backbone_name}, {meta['inference']}")
+    dets = [Predictor(m, v, device=dev, device_preprocess=True, **small)
+            .predict_batch(parity_pages)
+            for m, v in ((RetinaNet(1, name, dtype=torch.bfloat16), variables),
+                         (model, loaded))]
+    require(all(np.array_equal(a, b) for x, y in zip(*dets) for a, b in zip(x, y)),
+            f"{name}: the bundle's detections differ from the in-memory model's")
+    bundle_mb = bundle.stat().st_size / 2 ** 20
+    bundle.unlink()
+    return {"preprocess_mode": mode, "logit_std_as_drawn": drawn_std,
+            "fused_stem": pred.fused_stem,
+            "images_per_s": len(pages) / elapsed, "seconds": elapsed,
+            "host_prep_s": pred.host_prep_s, "dispatch_s": pred.dispatch_s,
+            "detections": n_det, "normalize_modes": sorted(set(modes)),
+            "launches": launches, "peak_mem_gb": peak, "parity_f32_512": parity,
+            "bundle_mb": bundle_mb, "bundle_write_read_s": bundle_s}
+
+
+def _backbone_train(dev, name):
+    """BACKBONE_TRAIN_STEPS bf16 train steps of a ``name`` RetinaNet at batch
+    BACKBONE_TRAIN_BATCH on TRAIN_PAGE pages (bucket 800x1344), uint8
+    through the route the train step picks (the fused stem and its backward
+    kernel for SE-ResNet, the normalize kernel in the family's mode for the
+    others); counters set to 0 just before the steps and read just after.
+    Losses finite, the weights changed."""
+    import numpy as np
+    import torch
+
+    from tdnet_torch.models import backbone
+    from tdnet_torch.models.retinanet import RetinaNet, takes_fused_stem
+    from tdnet_torch.ops import stem
+    from tdnet_torch.train.step import (create_optimizer, create_train_state,
+                                        make_train_step)
+    from tdnet_torch.weights import random_variables
+
+    mode = backbone(name).preprocess_mode
+    pages, boxes = synthetic_pages(BACKBONE_TRAIN_BATCH, 0, SEED + 6,
+                                   sizes=(TRAIN_PAGE, None), with_boxes=True)
+    host = next(_host_batch(pages, boxes, (MIN_SIDE, MAX_SIDE),
+                            BACKBONE_TRAIN_BATCH, mode).epoch())
+    model = RetinaNet(1, name, dtype=torch.bfloat16)
+    state = create_train_state(model, random_variables(1, name, seed=SEED), device=dev,
+                               optimizer=create_optimizer(TRAIN_LR, 1e6))
+    step = make_train_step(model, num_classes=1, preprocess_mode=mode)
+    watched = ["backbone.conv1.weight", "classification_submodel.head.weight"]
+    if name.startswith("se"):
+        watched.append("backbone.stage5_block2.se_expand.weight")
+    params = dict(model.named_parameters())
+    before = {k: params[k].detach().clone() for k in watched}
+    batch = _to_device(host, dev)
+    counters = dict(_all_counters(), stem_bwd=stem.BWD_LAUNCHES)
+    for c in counters.values():
+        c.reset()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.monotonic()
+    losses = []
+    for _ in range(BACKBONE_TRAIN_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    sync(dev)
+    seconds = time.monotonic() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    require(np.isfinite(losses).all(), f"{name}: losses {losses}")
+    changed = {k: not torch.equal(before[k], params[k].detach()) for k in watched}
+    require(all(changed.values()), f"{name}: weights unchanged {changed}")
+    if dev.type == "cuda":
+        if takes_fused_stem(name):
+            want = (launches["stem"] >= BACKBONE_TRAIN_STEPS
+                    and launches["stem_bwd"] >= BACKBONE_TRAIN_STEPS
+                    and launches["ingest"] == 0)
+        else:
+            want = launches["ingest"] >= BACKBONE_TRAIN_STEPS and launches["stem"] == 0
+        require(want, f"{name} training launches: {launches}")
+    return {"preprocess_mode": mode, "batch": BACKBONE_TRAIN_BATCH,
+            "bucket": [batch["images"].shape[1], batch["images"].shape[2] // 3],
+            "steps": BACKBONE_TRAIN_STEPS, "losses": losses,
+            "step_s": seconds / BACKBONE_TRAIN_STEPS, "weights_changed": changed,
+            "launches": launches,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                            if dev.type == "cuda" else None)}
+
+
+def phase_backbones(dev):
+    """The other backbone families at full width and depth (1 class, random
+    weights from the seed): SE-ResNet-50 through the fused stem kernels,
+    VGG-16 (caffe), DenseNet-121 and MobileNet (tf) through the normalize
+    kernel, every one through the NMS kernel. For each: the predict phase's
+    16 pages in bf16, CUDA vs CPU in f32 at 512x512, a .tdn round trip; 2
+    bf16 train steps of SE-ResNet-50 (stem, stem_bwd) and DenseNet-121
+    (ingest); one f32 SE-ResNet-50 step on CUDA against the CPU at 256x256
+    (phase_train_parity's bounds)."""
+    from tdnet_torch.data.generator import default_buckets, pick_bucket
+    from tdnet_torch.data.image import compute_resize_scale
+
+    t_phase = time.monotonic()
+    pages = synthetic_pages(N_LANDSCAPE, N_PORTRAIT, SEED)
+    scales = [compute_resize_scale(p.shape, MIN_SIDE, MAX_SIDE) for p in pages]
+    buckets = [pick_bucket(round(p.shape[0] * s), round(p.shape[1] * s),
+                           default_buckets(MIN_SIDE, MAX_SIDE))
+               for p, s in zip(pages, scales)]
+    inference = {name: _backbone_predict(dev, name, pages, buckets, scales)
+                 for name in BACKBONES}
+    train = {name: _backbone_train(dev, name) for name in BACKBONE_TRAIN}
+    step_pages, step_boxes = synthetic_pages(1, 0, SEED + 7, sizes=(BACKBONE_STEP_PAGE, None),
+                                             with_boxes=True)
+    host = next(_host_batch(step_pages, step_boxes, BACKBONE_STEP_SIDES, 1).epoch())
+    step_parity = _step_parity(dev, "seresnet50", host)
+    total = {}
+    for res in list(inference.values()) + list(train.values()):
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+    emit({"phase": "backbones", "ok": True, "dtype": "bfloat16",
+          "pages": len(pages), "buckets": sorted({str(b) for b in buckets}),
+          "inference": inference, "train": train,
+          "train_parity_seresnet50": {"bucket": list(BACKBONE_STEP_SIDES), "batch": 1,
+                                      "dtype": "float32", **step_parity},
+          "launches": total, "seconds": time.monotonic() - t_phase})
+    return total
+
+
 def _served_match(resp_dets, want, threshold):
     """A server's (or the predict CLI's) JSON detections against a
     Predictor's (boxes, scores, labels) above the same threshold: the same
@@ -2412,6 +2659,8 @@ def main() -> int:
         soft_launches = phase_predict_soft(dev)
         phase = "predict_r101"
         r101_launches = phase_predict_r101(dev)
+        phase = "backbones"
+        backbone_launches = phase_backbones(dev)
         phase = "serve"
         serve_launches = phase_serve(dev)
         phase = "cli"
@@ -2424,10 +2673,12 @@ def main() -> int:
         return 1
 
     # launches: the main paths' runs (predict's two routes, training, the
-    # train CLI and its initial-weight flags, config 5, config 4, serving, the CLIs); conv1x1 (B7) is
-    # wired into no model, in the JAX package too, so no path launches it
+    # train CLI and its initial-weight flags, config 5, config 4, the other
+    # backbone families, serving, the CLIs); conv1x1 (B7) is wired into no
+    # model, in the JAX package too, so no path launches it
     runs = (launches, train_launches, train_cli_launches, init_launches,
-            soft_launches, r101_launches, serve_launches, cli_launches)
+            soft_launches, r101_launches, backbone_launches, serve_launches,
+            cli_launches)
     sources = {
         "ingest": ("tdnet_torch/csrc/ingest.cu", "tdnet/ops/pallas_ingest.py:137"),
         "stem": ("tdnet_torch/csrc/stem.cu", "tdnet/ops/pallas_stem.py:676"),

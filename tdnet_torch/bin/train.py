@@ -6,9 +6,10 @@ The reference's flags and defaults: Adam lr 1e-5 with clipnorm 1e-3, batch
 size 1, 10000 steps an epoch, 50 epochs, a checkpoint every epoch, optional
 per-epoch mAP (``--evaluation`` with ``--val-annotations``) and
 ReduceLROnPlateau(loss, 0.1, patience 2). Runs on CUDA unless ``--device
-cpu``; with ``--device-normalize`` a ResNet trains through the fused
-ingest+stem kernels (forward and backward), ``--no-fused-stem`` takes the
-normalize kernel and cuDNN instead.
+cpu``; ``--backbone`` takes every name of ``models.backbone``. With
+``--device-normalize`` a ResNet or SE-ResNet trains through the fused
+ingest+stem kernels (forward and backward), and ``--no-fused-stem`` takes
+the normalize kernel and cuDNN instead, as the other backbones do.
 
 Initial weights: ``--weights`` takes a ``.tdn`` bundle, a keras ``.h5``
 (a keras-retinanet snapshot or a keras-resnet ImageNet backbone, read by
@@ -122,7 +123,7 @@ def parse_args(argv=None):
                         action="store_false", default=None,
                         help="with --device-normalize, the normalize kernel and "
                              "cuDNN in place of the fused ingest+stem kernels "
-                             "(default: fused on CUDA for ResNets)")
+                             "(default: fused on CUDA for ResNets and SE-ResNets)")
     parser.add_argument("--fused-stem", dest="fused_stem",
                         action="store_true", default=None,
                         help="force the fused ingest+stem route on (on the CPU: "

@@ -16,8 +16,9 @@ depthwise kernel (H, W, C, 1) becomes flax's grouped (H, W, 1, C). Keras
 BatchNormalization's gamma, beta, moving_mean and moving_variance become
 scale, bias, mean and var. The result is the numpy ``{params,
 batch_stats}`` tree that ``tdnet_torch/weights.py`` turns into a state
-dict. The name maps of every backbone family are here, the ones the port
-does not build yet too (ROADMAP A15).
+dict. VGG, DenseNet and MobileNet files load into their families'
+templates (``weights.random_variables``); SE-ResNet has no verified keras
+naming of its SE layers and raises, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ from typing import Dict, Tuple
 import numpy as np
 
 from tdnet_torch.compat import hdf5
+from tdnet_torch.models.densenet import DENSENET_BLOCKS
+from tdnet_torch.models.resnet import STAGE_SIZES
+from tdnet_torch.models.vgg import VGG_STAGES
 
 __all__ = [
     "load_keras_retinanet_h5",
@@ -35,12 +39,6 @@ __all__ = [
     "keras_name_map_for",
     "export_random_keras_weights",
 ]
-
-# the reference's tdnet/models/vgg.py VGG_STAGES and
-# tdnet/models/densenet.py DENSENET_BLOCKS
-VGG_STAGES = {"vgg16": (2, 2, 3, 3, 3), "vgg19": (2, 2, 4, 4, 4)}
-DENSENET_BLOCKS = {"densenet121": (6, 12, 24, 16), "densenet169": (6, 12, 32, 32),
-                   "densenet201": (6, 12, 48, 32)}
 
 
 def keras_name_map(stage_sizes=(3, 4, 6, 3)) -> Dict[str, Tuple[str, ...]]:
@@ -132,8 +130,6 @@ def keras_name_map_densenet(block_sizes=(6, 12, 24, 16)) -> Dict[str, Tuple[str,
 
 def keras_name_map_for(backbone_name: str) -> Dict[str, Tuple[str, ...]]:
     """The name map of a backbone family."""
-    from tdnet_torch.models.resnet import STAGE_SIZES
-
     name = backbone_name
     if name.startswith("seresnet"):
         # no verified upstream naming of the SE Dense layers: a plain ResNet

@@ -1,10 +1,9 @@
-"""Models: ResNet backbone, FPN + subnets (RetinaNet), inference tail; and
-the backbone registry, the counterpart of ``tdnet/models/__init__.py``.
+"""Models: the backbones (ResNet, SE-ResNet, VGG, DenseNet, MobileNet),
+FPN + subnets (RetinaNet), inference tail; and the backbone registry, the
+counterpart of ``tdnet/models/__init__.py``.
 
 ``backbone(name)`` returns a descriptor with the name and the preprocess
-mode the CLIs need. The table holds every name the reference knows; the
-port builds the ResNets, and the others raise (ROADMAP A15) when a model is
-built from them.
+mode the CLIs need, for every name the reference knows.
 """
 
 from __future__ import annotations
@@ -25,8 +24,7 @@ class Backbone:
 
     def retinanet(self, num_classes: int, dtype: torch.dtype = torch.float32,
                   **kwargs):
-        """The RetinaNet on this backbone; names the port does not build
-        raise ``NotImplementedError`` (ROADMAP A15)."""
+        """The RetinaNet on this backbone."""
         from tdnet_torch.models.retinanet import RetinaNet
 
         return RetinaNet(num_classes, backbone=self.name, dtype=dtype, **kwargs)

@@ -91,8 +91,8 @@ def save_model(path: str, model: RetinaNet, variables: Dict[str, Any],
 def load_model(path: str, dtype: torch.dtype = torch.float32
                ) -> Tuple[RetinaNet, Dict[str, Any], dict]:
     """Load a ``.tdn`` bundle -> (model, variables, meta). The variables
-    are writable numpy arrays (views of the file's bytes); backbones the
-    port does not have yet raise (ROADMAP A15)."""
+    are writable numpy arrays (views of the file's bytes); an unknown
+    backbone raises ``ValueError``."""
     with open(path, "rb") as f:
         buf = bytearray(f.read())
     payload = msgpack.unpackb(buf)

@@ -1,5 +1,6 @@
 """Shared building blocks, the counterpart of ``tdnet/models/layers.py``:
-frozen BatchNorm, a conv with TensorFlow 'SAME' padding, and the TF1
+frozen BatchNorm, a conv with TensorFlow 'SAME' padding (grouped too, for
+MobileNet's depthwise convs), a dense layer (the SE gate's) and the TF1
 nearest resize.
 
 Activations are NCHW tensors in ``channels_last`` memory (an NHWC buffer
@@ -19,15 +20,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["FrozenBatchNorm", "recording_bn_inputs", "Conv2d", "same_pads",
-           "resize_nearest_like"]
+__all__ = ["FrozenBatchNorm", "recording_bn_inputs", "Conv2d", "Dense",
+           "same_pads", "resize_nearest_like"]
 
 
 class FrozenBatchNorm(nn.Module):
     """Inference-mode BatchNorm with stored statistics (keras-resnet
-    freeze_bn, eps 1e-5). Folds in f32 to ``inv = rsqrt(var + eps) * scale``,
-    ``off = bias - mean * inv``, then computes ``x * inv + off`` in the
-    activation dtype."""
+    freeze_bn, eps 1e-5; MobileNet's 1e-3). Folds in f32 to
+    ``inv = rsqrt(var + eps) * scale``, ``off = bias - mean * inv``, then
+    computes ``x * inv + off`` in the activation dtype."""
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -83,26 +84,45 @@ def same_pads(n: int, k: int, s: int):
 class Conv2d(nn.Module):
     """k x k conv with TF 'SAME' padding (1x1: none); the weight is float32
     OIHW and is rounded to the input dtype at the call, like flax
-    ``nn.Conv(dtype=..., param_dtype=float32)``."""
+    ``nn.Conv(dtype=..., param_dtype=float32)``. ``groups`` is flax's
+    ``feature_group_count``: a depthwise conv's weight is (C, 1, k, k), the
+    bridge's image of flax's (k, k, 1, C)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 bias: bool = True):
+                 bias: bool = True, groups: int = 1):
         super().__init__()
-        self.k, self.stride = k, stride
-        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
+        self.k, self.stride, self.groups = k, stride, groups
+        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
+        conv = functools.partial(F.conv2d, weight=w, bias=b, stride=self.stride,
+                                 groups=self.groups)
         if self.k == 1:
-            return F.conv2d(x, w, b, stride=self.stride)
+            return conv(x)
         ph = same_pads(x.shape[2], self.k, self.stride)
         pw = same_pads(x.shape[3], self.k, self.stride)
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, w, b, stride=self.stride, padding=(ph[0], pw[0]))
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, w, b, stride=self.stride)
+            return conv(x, padding=(ph[0], pw[0]))
+        # uneven (a stride-2 conv on an even size pads (0, 1))
+        return conv(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
+
+
+class Dense(nn.Module):
+    """x @ W^T + b on the last axis; the float32 (out, in) weight (flax's
+    (in, out) kernel transposed by the bridge) and the bias are rounded to
+    the input dtype at the call, like flax ``nn.Dense(dtype=...,
+    param_dtype=float32)``."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 def resize_nearest_like(x: torch.Tensor, target_hw) -> torch.Tensor:

@@ -1,11 +1,15 @@
-"""ResNet-50/101/152 backbone with C3/C4/C5 taps, the counterpart of
-``tdnet/models/resnet.py`` (keras-resnet v1 bottlenecks).
+"""ResNet-50/101/152 and SE-ResNet backbones with C3/C4/C5 taps, the
+counterpart of ``tdnet/models/resnet.py`` (keras-resnet v1 bottlenecks).
 
 - stem: explicit zero pad 3 -> 7x7/2 conv (no bias) -> frozen BN -> ReLU
   -> 3x3/2 max-pool with TF 'SAME' padding (on even dims that pads (0, 1)
   with -inf, which ``nn.MaxPool2d(padding=1)`` would get wrong);
 - bottlenecks with the stride on the FIRST 1x1 conv, a projection shortcut
-  on each stage's first block, stage strides 1, 2, 2, 2.
+  on each stage's first block, stage strides 1, 2, 2, 2;
+- with ``se_ratio > 0`` (SE-ResNet) a squeeze-excitation gate after
+  ``bn3``: the spatial mean in the compute dtype, ``se_reduce`` to
+  ``max(1, int(4 * filters * se_ratio))`` units, ReLU, ``se_expand``,
+  sigmoid, and the product, before the residual.
 
 Module names follow the flax tree (``conv1``, ``bn1``,
 ``stage{2..5}_block{i}``) so the weight bridge is a rename. ``forward``
@@ -17,7 +21,7 @@ one chain wherever ``supports_block`` admits the stage, as
 ``tdnet/models/resnet.py`` ``_identity_run`` does; the state dict is the
 same either way. The kernel launches once per block, so the reference's
 ``TDNET_CHAIN_DEPTH`` (how many blocks share a launch) has no counterpart.
-SE-ResNet is not ported yet.
+SE blocks never take the kernel, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tdnet_torch.models.layers import Conv2d, FrozenBatchNorm, same_pads
+from tdnet_torch.models.layers import Conv2d, Dense, FrozenBatchNorm, same_pads
 from tdnet_torch.ops.block import fused_bottleneck_chain, kmajor_weights, supports_block
 
 __all__ = ["STAGE_SIZES", "Bottleneck", "StemConv", "ResNet", "max_pool_same"]
@@ -49,10 +53,11 @@ def max_pool_same(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
 
 
 class Bottleneck(nn.Module):
-    """1x1(/s) -> 3x3 -> 1x1(x4) with a post-activation residual."""
+    """1x1(/s) -> 3x3 -> 1x1(x4) [-> SE gate] with a post-activation
+    residual."""
 
     def __init__(self, cin: int, filters: int, stride: int = 1,
-                 projection: bool = False):
+                 projection: bool = False, se_ratio: float = 0.0):
         super().__init__()
         self.conv1 = Conv2d(cin, filters, 1, stride, bias=False)
         self.bn1 = FrozenBatchNorm(filters)
@@ -60,6 +65,11 @@ class Bottleneck(nn.Module):
         self.bn2 = FrozenBatchNorm(filters)
         self.conv3 = Conv2d(filters, filters * 4, 1, 1, bias=False)
         self.bn3 = FrozenBatchNorm(filters * 4)
+        self.se = se_ratio > 0
+        if self.se:
+            hidden = max(1, int(filters * 4 * se_ratio))
+            self.se_reduce = Dense(filters * 4, hidden)
+            self.se_expand = Dense(hidden, filters * 4)
         if projection:
             self.conv_shortcut = Conv2d(cin, filters * 4, 1, stride, bias=False)
             self.bn_shortcut = FrozenBatchNorm(filters * 4)
@@ -69,6 +79,9 @@ class Bottleneck(nn.Module):
         y = torch.relu(self.bn1(self.conv1(x)))
         y = torch.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
+        if self.se:
+            s = torch.relu(self.se_reduce(y.mean(dim=(2, 3))))
+            y = y * torch.sigmoid(self.se_expand(s))[:, :, None, None]
         shortcut = self.bn_shortcut(self.conv_shortcut(x)) if self.projection else x
         return torch.relu(y + shortcut)
 
@@ -88,11 +101,14 @@ class ResNet(nn.Module):
     """(C3, C4, C5) at strides 8/16/32 from NCHW images."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 dtype: torch.dtype = torch.float32, block_kernel: bool = False):
+                 dtype: torch.dtype = torch.float32, block_kernel: bool = False,
+                 se_ratio: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.stage_sizes = tuple(stage_sizes)
-        self.block_kernel = block_kernel  # inference-only
+        self.se_ratio = se_ratio  # > 0: SE-ResNet
+        self.block_kernel = block_kernel  # inference-only; never for SE blocks
+        self.channels = (512, 1024, 2048)  # C3, C4, C5
         self._chain_cache = {}  # stage -> (key, (stacked weights, K-major or None))
         self.conv1 = StemConv(64)
         self.bn1 = FrozenBatchNorm(64)
@@ -102,7 +118,8 @@ class ResNet(nn.Module):
                 stride = 2 if (stage > 0 and block == 0) else 1
                 self.add_module(
                     f"stage{stage + 2}_block{block}",
-                    Bottleneck(cin, filters, stride=stride, projection=block == 0))
+                    Bottleneck(cin, filters, stride=stride, projection=block == 0,
+                               se_ratio=se_ratio))
                 cin = filters * 4
             filters *= 2
 
@@ -136,7 +153,7 @@ class ResNet(nn.Module):
         blocks = [getattr(self, f"stage{stage + 2}_block{i}") for i in range(1, n + 1)]
         filters = 64 * 2 ** stage
         b, c, h, w = x.shape
-        if not (block_kernel and blocks and c == 4 * filters
+        if not (block_kernel and self.se_ratio == 0 and blocks and c == 4 * filters
                 and supports_block((b, h, w, c), filters)):
             for block in blocks:
                 x = block(x)

@@ -1,5 +1,10 @@
-"""RetinaNet: ResNet + FPN + shared subnets, the counterpart of
+"""RetinaNet: a backbone + FPN + shared subnets, the counterpart of
 ``tdnet/models/retinanet.py``.
+
+- Backbones (``build_backbone``, the reference's ``_build_backbone``):
+  ResNet-50/101/152, SE-ResNet-50/101/152 (``seresnet<n>``: the ResNet's
+  stages with ``se_ratio`` 1/16), VGG-16/19, DenseNet-121/169/201 and
+  MobileNet (``mobilenet[_<alpha>]``).
 
 - FPN: P5 = 1x1(C5); P4 = 1x1(C4) + nearest-up(P5 before its 3x3); P3
   likewise; P3..P5 then 3x3; P6 = 3x3/2 on C5; P7 = 3x3/2 on ReLU(P6). All
@@ -10,12 +15,13 @@
   levels are concatenated P3 -> P7.
 
 ``forward`` takes NHWC images (or, with ``stem_input``, the NHWC pooled stem
-activations) like the flax model and runs NCHW ``channels_last`` inside; an
-NHWC-contiguous tensor permuted to NCHW is exactly that, with no copy.
-Classification is returned as logits. ``block_kernel`` routes the
-backbone's identity bottlenecks through the fused kernel (inference only,
-same state dict); ``forward(..., block_kernel=...)`` overrides it for one
-call.
+activations: ResNets and SE-ResNets only) like the flax model and runs NCHW
+``channels_last`` inside; an NHWC-contiguous tensor permuted to NCHW is
+exactly that, with no copy. Classification is returned as logits.
+``block_kernel`` routes a plain ResNet's identity bottlenecks through the
+fused kernel (inference only, same state dict); ``forward(...,
+block_kernel=...)`` overrides it for one call, and other backbones ignore
+it.
 """
 
 from __future__ import annotations
@@ -25,10 +31,44 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from tdnet_torch.models.densenet import DENSENET_BLOCKS, DenseNet
 from tdnet_torch.models.layers import Conv2d, resize_nearest_like
+from tdnet_torch.models.mobilenet import MobileNet
 from tdnet_torch.models.resnet import STAGE_SIZES, ResNet
+from tdnet_torch.models.vgg import VGG, VGG_STAGES
 
-__all__ = ["RetinaNet", "FPN", "Subnet"]
+__all__ = ["RetinaNet", "FPN", "Subnet", "build_backbone", "takes_fused_stem"]
+
+
+def takes_fused_stem(backbone_name: str) -> bool:
+    """Whether the backbone starts with the ResNet stem that the fused
+    ingest+stem kernels compute: ResNets and SE-ResNets (the reference's
+    ``backbone_name.lstrip("se").startswith("resnet")``)."""
+    return backbone_name.removeprefix("se").startswith("resnet")
+
+
+def build_backbone(name: str, dtype: torch.dtype = torch.float32,
+                   block_kernel: bool = False) -> nn.Module:
+    """A C3/C4/C5 feature extractor by registry name (reference:
+    ``tdnet/models/retinanet.py`` ``_build_backbone``); its ``channels``
+    are the taps' widths. ``block_kernel`` applies to plain ResNets only."""
+    if name in STAGE_SIZES:
+        return ResNet(STAGE_SIZES[name], dtype=dtype, block_kernel=block_kernel)
+    if name.startswith("seresnet") and name[2:] in STAGE_SIZES:
+        return ResNet(STAGE_SIZES[name[2:]], dtype=dtype, se_ratio=1.0 / 16)
+    if name in VGG_STAGES:
+        return VGG(VGG_STAGES[name], dtype=dtype)
+    if name in DENSENET_BLOCKS:
+        return DenseNet(DENSENET_BLOCKS[name], dtype=dtype)
+    if name.startswith("mobilenet"):
+        # 'mobilenet224_1.0' style names (reference) or plain 'mobilenet'
+        alpha = float(name.split("_")[-1]) if "_" in name else 1.0
+        return MobileNet(alpha, dtype=dtype)
+    raise ValueError(
+        f"unknown backbone {name!r}; available: resnet50/101/152, "
+        "seresnet50/101/152, vgg16/19, densenet121/169/201, "
+        "mobilenet[_<alpha>]"
+    )
 
 
 class FPN(nn.Module):
@@ -90,10 +130,6 @@ class RetinaNet(nn.Module):
                  output_dtype: Optional[torch.dtype] = torch.float32,
                  block_kernel: bool = False):
         super().__init__()
-        if backbone not in STAGE_SIZES:
-            raise NotImplementedError(
-                f"backbone {backbone!r} is not ported yet (ROADMAP A15); "
-                f"ported: {sorted(STAGE_SIZES)}")
         self.num_classes = num_classes
         self.backbone_name = backbone
         self.num_anchors = num_anchors
@@ -103,18 +139,34 @@ class RetinaNet(nn.Module):
         self.prior_probability = prior_probability
         self.dtype = dtype
         self.output_dtype = output_dtype
-        self.backbone = ResNet(STAGE_SIZES[backbone], dtype=dtype,
-                               block_kernel=block_kernel)
-        self.fpn = FPN(feature_size=feature_size)
+        self.backbone = build_backbone(backbone, dtype, block_kernel)
+        self.fpn = FPN(*self.backbone.channels, feature_size=feature_size)
         self.regression_submodel = Subnet(num_anchors * 4, feature_size)
         self.classification_submodel = Subnet(num_anchors * num_classes,
                                               feature_size)
 
+    def stem_params(self):
+        """The backbone's stem for the fused ingest+stem kernels
+        (``ResNet.stem_params``); other families raise, as the reference's
+        ``stem_input`` does."""
+        self._require_resnet()
+        return self.backbone.stem_params()
+
+    def _require_resnet(self) -> None:
+        if not isinstance(self.backbone, ResNet):
+            raise ValueError(
+                f"stem_input is ResNet-only, got backbone {self.backbone_name!r}")
+
     def forward(self, images: torch.Tensor, stem_input: bool = False,
                 block_kernel: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         x = images.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
-        c3, c4, c5 = self.backbone(x, stem_input=stem_input,
-                                   block_kernel=block_kernel)
+        if stem_input:
+            self._require_resnet()
+        if isinstance(self.backbone, ResNet):
+            c3, c4, c5 = self.backbone(x, stem_input=stem_input,
+                                       block_kernel=block_kernel)
+        else:
+            c3, c4, c5 = self.backbone(x)
         features = self.fpn(c3, c4, c5)
         b = images.shape[0]
         flat = lambda t, n: t.permute(0, 2, 3, 1).reshape(b, -1, n)

@@ -8,7 +8,8 @@ the device, then divide the boxes by the resize scale on the host. With
 of two routes:
 
 - packed (B, H, W*3) rows -> the fused ingest+stem kernel -> the model from
-  its pooled stem output (``fused_stem``; on by default on CUDA);
+  its pooled stem output (``fused_stem``; on by default on CUDA for ResNet
+  and SE-ResNet backbones);
 - flat rows ((R, 3072), or (B*H, W*3) where 3072 does not divide) -> the
   normalize kernel -> the model.
 
@@ -39,6 +40,7 @@ from tdnet_torch.data.generator import default_buckets, pick_bucket
 from tdnet_torch.data.image import CAFFE_MEAN_BGR, preprocess_image, resize_image
 from tdnet_torch.device import resolve_device
 from tdnet_torch.models.detect import detections_from_outputs
+from tdnet_torch.models.retinanet import takes_fused_stem
 from tdnet_torch.ops.anchors import AnchorParameters
 from tdnet_torch.ops.ingest import normalize_uint8_rows, pack_uint8_host
 from tdnet_torch.ops.stem import fused_stem_packed, supports_shape
@@ -106,13 +108,13 @@ class Predictor:
         self.device_preprocess = device_preprocess
         if fused_stem is None:
             fused_stem = (device_preprocess and self.device.type == "cuda"
-                          and model.backbone_name.startswith("resnet")
+                          and takes_fused_stem(model.backbone_name)
                           and preprocess_mode in ("caffe", "tf"))
         self.fused_stem = bool(fused_stem)
         self._stem_params = None
         if self.fused_stem:
             with torch.no_grad():
-                self._stem_params = self.model.backbone.stem_params()
+                self._stem_params = self.model.stem_params()
         # cumulative host-prep vs device-dispatch seconds; "dispatch" is the
         # device work plus the result fetch that waits for it
         self.host_prep_s = 0.0

@@ -29,6 +29,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from tdnet_torch.device import resolve_device
+from tdnet_torch.models.retinanet import takes_fused_stem
 from tdnet_torch.ops.anchors import AnchorParameters, anchors_for_shape
 from tdnet_torch.ops.ingest import normalize_uint8_rows
 from tdnet_torch.ops.losses import focal, smooth_l1
@@ -125,7 +126,8 @@ def make_train_step(
 ) -> Callable:
     """train_step(state, batch) -> (state, metrics). ``batch`` holds device
     tensors: images, gt_boxes, gt_labels, gt_mask, image_hw. ``fused_stem``
-    None means on for CUDA with a ResNet backbone and caffe/tf mode. Metrics
+    None means on for CUDA with a ResNet or SE-ResNet backbone and caffe/tf
+    mode; other backbones take the normalize kernel. Metrics
     are device tensors: loss, classification_loss, regression_loss,
     num_positive, grad_norm (the global norm before clipping)."""
     focal_fn = focal(alpha=focal_alpha, gamma=focal_gamma, from_logits=True)
@@ -133,7 +135,7 @@ def make_train_step(
     anchors: Dict[tuple, torch.Tensor] = {}
     if fused_stem is None:
         fused_stem = (next(model.parameters()).device.type == "cuda"
-                      and model.backbone_name.startswith("resnet")
+                      and takes_fused_stem(model.backbone_name)
                       and preprocess_mode in ("caffe", "tf"))
 
     def forward(images):
@@ -145,7 +147,7 @@ def make_train_step(
             return model(images), tuple(images.shape[1:3])
         b, h, w3 = images.shape
         if fused_stem and supports_shape((b, h, w3 // 3, 3)):
-            k7, inv, off = model.backbone.stem_params()
+            k7, inv, off = model.stem_params()
             act = fused_stem_train(
                 images, k7, inv, off, normalize=preprocess_mode,
                 out_dtype=model.dtype,

@@ -4,8 +4,9 @@ modules.
 The flax tree is ``{"params": ..., "batch_stats": ...}`` of numpy arrays
 (nested dicts keyed by module name). The port's module names follow it, so a
 flax path ``backbone/stage2_block0/conv1/kernel`` is the state key
-``backbone.stage2_block0.conv1.weight``; conv kernels go HWIO -> OIHW, and
-BatchNorm ``mean``/``var`` live in ``batch_stats``. Both directions copy the
+``backbone.stage2_block0.conv1.weight``; conv kernels go HWIO -> OIHW (a
+depthwise (k, k, 1, C) to (C, 1, k, k)), dense kernels (in, out) -> (out,
+in), and BatchNorm ``mean``/``var`` live in ``batch_stats``. Both directions copy the
 values unchanged, so a round trip is exact.
 
 ``.tdn`` bundles (msgpack written through flax) are read by a later slice:
@@ -24,6 +25,9 @@ __all__ = ["torch_state_from_variables", "variables_from_torch_state",
            "random_variables"]
 
 _BATCH_STATS = ("mean", "var")
+# flax kernel -> torch weight axes: conv HWIO -> OIHW, dense (in, out) -> (out, in)
+_KERNEL_TO_WEIGHT = {4: (3, 2, 0, 1), 2: (1, 0)}
+_WEIGHT_TO_KERNEL = {4: (2, 3, 1, 0), 2: (1, 0)}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -43,10 +47,10 @@ def torch_state_from_variables(variables: Mapping) -> dict:
             arr = np.asarray(value)
             name = path[-1]
             if name == "kernel":
-                if arr.ndim != 4:
-                    raise NotImplementedError(
-                        f"{'/'.join(path)}: only 4-D conv kernels are bridged")
-                arr, name = arr.transpose(3, 2, 0, 1), "weight"
+                if arr.ndim not in _KERNEL_TO_WEIGHT:
+                    raise ValueError(f"{'/'.join(path)}: a {arr.ndim}-D kernel "
+                                     "is neither a conv's nor a dense layer's")
+                arr, name = arr.transpose(_KERNEL_TO_WEIGHT[arr.ndim]), "weight"
             key = ".".join(path[:-1] + (name,))
             # native byte order: an .h5 may hold big-endian arrays
             state[key] = torch.from_numpy(
@@ -64,7 +68,7 @@ def variables_from_torch_state(state: Mapping) -> dict:
         path = key.split(".")
         name = path[-1]
         if name == "weight":
-            arr, name = arr.transpose(2, 3, 1, 0), "kernel"
+            arr, name = arr.transpose(_WEIGHT_TO_KERNEL[arr.ndim]), "kernel"
         collection = "batch_stats" if name in _BATCH_STATS else "params"
         node = out[collection]
         for part in path[:-1]:
@@ -89,9 +93,9 @@ def random_variables(num_classes: int, backbone: str = "resnet50",
                      prior_probability: float = 0.01) -> dict:
     """A flax-shaped ``{params, batch_stats}`` numpy tree with flax's init
     distributions (the counterpart of ``RetinaNet.init``; the values differ
-    from jax.random's): lecun_normal conv kernels in the backbone and FPN,
-    Normal(0.01) subnet kernels, zero biases, the classification head bias
-    at -log((1 - p) / p), BatchNorm at identity."""
+    from jax.random's): lecun_normal conv and dense kernels in the backbone
+    and FPN, Normal(0.01) subnet kernels, zero biases, the classification
+    head bias at -log((1 - p) / p), BatchNorm at identity."""
     from tdnet_torch.models.retinanet import RetinaNet
 
     with torch.device("meta"):
@@ -106,7 +110,7 @@ def random_variables(num_classes: int, backbone: str = "resnet50",
         if name == "weight" and subnet:
             arr = (rng.standard_normal(shape) * 0.01).astype(np.float32)
         elif name == "weight":
-            fan_in = shape[1] * shape[2] * shape[3]
+            fan_in = math.prod(shape[1:])  # conv (O, I/groups, k, k), dense (out, in)
             # flax lecun_normal: variance 1/fan_in, truncated at 2 std
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             arr = _truncated_normal(rng, shape, std)

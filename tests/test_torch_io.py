@@ -181,8 +181,8 @@ def test_port_writes_anchors_the_reference_cannot(variables, tmp_path):
 
 def test_model_state_round_trip_and_bad_bundles_raise(tmp_path):
     """A model's own state written through the bridge loads back equal,
-    here for a bf16 model; an unported backbone raises naming ROADMAP A15;
-    another format version raises."""
+    here for a bf16 model; an unknown backbone raises; another format
+    version raises."""
     from tdnet_torch.weights import variables_from_torch_state
 
     model = RetinaNet(2)
@@ -196,10 +196,10 @@ def test_model_state_round_trip_and_bad_bundles_raise(tmp_path):
 
     with open(path, "rb") as f:
         payload = codec.unpackb(f.read())
-    payload["meta"]["model"]["backbone_name"] = "vgg16"
+    payload["meta"]["model"]["backbone_name"] = "resnet18"
     with open(path, "wb") as f:
         f.write(codec.packb(payload))
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="unknown backbone 'resnet18'"):
         port_io.load_model(path)
     payload["meta"]["format_version"] = 2
     with open(path, "wb") as f:

@@ -149,10 +149,9 @@ def _tiny_tree(name_map, rng):
 
 @pytest.mark.parametrize("backbone", ["mobilenet", "densenet121", "vgg16"])
 def test_other_families_round_trip(tmp_path, backbone, capsys):
-    """The name maps the port does not build models for yet: the maps
-    equal the reference's, the depthwise transpose and the slashed
-    DenseNet names ('conv1/conv') load as the reference loads them, from
-    files either package wrote."""
+    """The other families' name maps equal the reference's, and the
+    depthwise transpose and the slashed DenseNet names ('conv1/conv') load
+    as the reference loads them, from files either package wrote."""
     from tdnet.compat.keras_import import export_random_keras_weights as ref_export
     from tdnet.compat.keras_import import keras_name_map_for as ref_map
     from tdnet.compat.keras_import import load_keras_retinanet_h5 as ref_load

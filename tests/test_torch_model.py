@@ -171,5 +171,12 @@ def test_layers_match_reference():
 
 
 def test_unported_backbone_raises():
-    with pytest.raises(NotImplementedError, match="A15"):
-        RetinaNet(1, backbone="vgg16")
+    """Every family the reference builds is ported; a name it does not know
+    raises its ValueError, word for word."""
+    from tdnet.models.retinanet import _build_backbone
+
+    with pytest.raises(ValueError) as want:
+        _build_backbone("resnet18", jnp.float32, True)
+    with pytest.raises(ValueError) as got:
+        RetinaNet(1, backbone="resnet18")
+    assert str(got.value) == str(want.value)
