@@ -39,7 +39,11 @@ family):
   ``tdnet_torch.bin.serve`` (bf16, device normalize, 32 concurrent
   ``.npy`` and PNG requests), then an f32 server against
   ``Predictor.predict_batch``;
-- the ``predict`` and ``evaluate`` CLIs on that bundle.
+- the ``predict`` and ``evaluate`` CLIs on that bundle;
+- the table workflow's tools chained on ResNet-50: VOC XML ->
+  ``csv_from_xml`` -> ``train --coco-evaluation`` -> ``convert_model`` ->
+  ``evaluate --coco`` -> ``predict --labels`` (captioned pages) ->
+  ``export_keras`` -> ``evaluate`` of the ``.h5``, and ``debug``.
 
 The fused 1x1 conv kernel (B7) is wired into no model, so only the kernel
 check runs it.
@@ -129,6 +133,21 @@ CONV1X1_BURST = 10
 # the three roundings after it can each add one ulp, so 4.5 ulps of the
 # chain scale bound it. The contracted-FMA control must fail the share.
 CONV1X1_BF16_LIMITS = {"share_equal": 0.999, "max_ulps_chain": 4.5}
+# the table workflow: TABLE_PAGES pages with VOC XML and one without (a
+# negative), a quarter held out; train at batch 2, 2 steps an epoch, 2
+# epochs with the COCO evaluation; predict --labels on TABLE_PREDICT pages,
+# each drawing at least TABLE_DRAWN detections
+TABLE_PAGES, TABLE_BATCH, TABLE_STEPS, TABLE_EPOCHS = 10, 2, 2, 2
+TABLE_PREDICT, TABLE_DRAWN = 3, 5
+COCO_KEYS = ("AP", "AP50", "AP75", "AP_small", "AP_medium", "AP_large",
+             "AR1", "AR10", "AR100", "AR_small", "AR_medium", "AR_large")
+# 9 anchors a location, as the checkpoint's heads, at other scales
+TABLE_ANCHORS_INI = """[anchor_parameters]
+sizes   = 32 64 128 256 512
+strides = 8 16 32 64 128
+ratios  = 0.5 1 2
+scales  = 1 1.2 1.6
+"""
 R101_SIDE, R101_PAGE, R101_PAGES = 1024, (1100, 1000), 16  # -> 1024x931, bucket 1024^2
 # the backbones phase: one RetinaNet of each other family, full width and
 # depth; CUDA-vs-CPU parity at 512x512 (pages of R101's parity), 2 bf16 train
@@ -2623,6 +2642,241 @@ def phase_cli(dev):
     return launches
 
 
+def _voc_xml(path, boxes) -> None:
+    """A VOC-style annotation file of table boxes."""
+    objects = "".join(
+        "<object><name>table</name><bndbox>" + "".join(
+            f"<{k}>{int(v)}</{k}>" for k, v in zip(("xmin", "ymin", "xmax", "ymax"), b))
+        + "</bndbox></object>" for b in boxes)
+    Path(path).write_text(f"<annotation><filename>{Path(path).stem}.png</filename>"
+                          f"{objects}</annotation>")
+
+
+def _tree_equal(got, want) -> bool:
+    """Two {params, batch_stats} numpy trees with the same leaves, bit for bit."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and sorted(got) == sorted(want)
+                and all(_tree_equal(got[k], want[k]) for k in want))
+    got, want = np.asarray(got), np.asarray(want)
+    return got.dtype == want.dtype and got.shape == want.shape and \
+        got.tobytes() == want.tobytes()
+
+
+def phase_table_workflow(dev):
+    """The table workflow's tools in-process, as a user chains them, on
+    the card, ResNet-50 at full width and depth from smoke_variables:
+    TABLE_PAGES synthetic table pages (TRAIN_PAGE, PNG) with one VOC XML
+    each and one page without (a negative) -> ``csv_from_xml --val-split
+    0.25`` (its rows must be the boxes written) -> ``train --bf16
+    --device-normalize --coco-evaluation`` (batch 2, 2 steps an epoch, 2
+    epochs, snapshots; the 12 COCO keys in each epoch's record) ->
+    ``convert_model`` of the last snapshot, plainly and with ``--no-nms
+    --config`` (weights bit-equal to the checkpoint's) -> ``evaluate
+    --coco`` on the bundle (the VOC lines, the 12 summary lines, AP_table)
+    -> ``predict --labels`` on TABLE_PREDICT pages (each annotated copy
+    byte-equal to ``draw_detections`` of its JSONL line's detections, which
+    must be the same predictor's, rounded; each holding caption pixels) -> ``export_keras``
+    (the .h5 loads back bit-equal through ``load_initial_weights``;
+    ``evaluate`` on it prints the bundle's VOC lines) -> ``debug --anchors
+    --limit 2`` (2 PNGs). Each step's launch counters set to 0 just before
+    it and read just after."""
+    import numpy as np
+    import torch
+
+    from tdnet_torch.bin import (convert_model, csv_from_xml, debug, evaluate,
+                                 export_keras, predict, train)
+    from tdnet_torch.data.image import read_image_bgr, write_image_bgr
+    from tdnet_torch.models.io import load_model, save_model
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.ops import stem
+    from tdnet_torch.train.weights import load_initial_weights
+    from tdnet_torch.utils.colors import label_color
+    from tdnet_torch.utils.visualization import draw_box, draw_detections
+    from tdnet_torch.weights import random_variables, variables_from_torch_state
+
+    t_phase = time.monotonic()
+    work = ROOT / "build" / "chip_smoke" / "table_workflow"
+    shutil.rmtree(work, ignore_errors=True)
+    for d in ("pages", "xml"):
+        (work / d).mkdir(parents=True)
+    pages, boxes = synthetic_pages(TABLE_PAGES + 1, 0, SEED + 13,
+                                   sizes=(TRAIN_PAGE, None), with_boxes=True)
+    want_rows, paths = [], []
+    for i, (page, page_boxes) in enumerate(zip(pages, boxes)):
+        paths.append(str(work / "pages" / f"page{i:02d}.png"))
+        write_image_bgr(paths[-1], page.astype(np.uint8))
+        if i == TABLE_PAGES:  # no XML: a negative
+            want_rows.append(f"{paths[-1]},,,,,")
+            continue
+        _voc_xml(work / "xml" / f"page{i:02d}.xml", page_boxes)
+        want_rows += [f"{paths[-1]},{int(b[0])},{int(b[1])},{int(b[2])},{int(b[3])},table"
+                      for b in page_boxes]
+    (work / "anchors.ini").write_text(TABLE_ANCHORS_INI)
+    with torch.device("meta"):
+        record = RetinaNet(1)  # the model record save_model reads
+    save_model(str(work / "init.tdn"), record, smoke_variables())
+
+    counters = {**_all_counters(), "stem_bwd": stem.BWD_LAUNCHES}
+    seconds, launches = {}, {}
+
+    def run(step, main, argv):
+        """One tool's main, its counters set to 0 just before and read just
+        after; its printed lines."""
+        log = io.StringIO()
+        for c in counters.values():
+            c.reset()
+        sync(dev)
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(log):
+            rc = main(argv)
+        sync(dev)
+        seconds[step] = time.monotonic() - t0
+        launches[step] = {k: c.count for k, c in counters.items()}
+        out = log.getvalue().splitlines()
+        require(rc == 0, f"{step} exited {rc}: {out[-5:]}")
+        return out
+
+    csv_dir, snaps = work / "csv", work / "snapshots"
+    data = ["csv", str(csv_dir / "annotations.csv"), str(csv_dir / "classes.csv")]
+    sides = ["--image-min-side", str(MIN_SIDE), "--image-max-side", str(MAX_SIDE)]
+    on_card = ["--device", dev.type]
+
+    # 1. VOC XML -> annotations.csv, val_annotations.csv, classes.csv
+    run("csv_from_xml", csv_from_xml.main,
+        [str(work / "pages"), "--xml-dir", str(work / "xml"), "--out-dir", str(csv_dir),
+         "--val-split", "0.25", "--seed", "0"])
+    train_rows = (csv_dir / "annotations.csv").read_text().splitlines()
+    val_rows = (csv_dir / "val_annotations.csv").read_text().splitlines()
+    val_pages = sorted({r.split(",")[0] for r in val_rows})
+    require(sorted(train_rows + val_rows) == sorted(want_rows)
+            and len(val_pages) == (TABLE_PAGES + 1) // 4
+            and (csv_dir / "classes.csv").read_text() == "table,0\n",
+            f"csv_from_xml rows differ from the boxes written: {len(train_rows)} + "
+            f"{len(val_rows)} rows for {len(want_rows)}")
+
+    # 2. train with the per-epoch COCO evaluation
+    total_steps = TABLE_STEPS * TABLE_EPOCHS
+    run("train", train.main,
+        ["--bf16", "--device-normalize", "--batch-size", str(TABLE_BATCH),
+         "--epochs", str(TABLE_EPOCHS), "--steps", str(TABLE_STEPS), "--log-every", "1",
+         *sides, "--weights", str(work / "init.tdn"), "--snapshot-path", str(snaps),
+         "--metrics-path", str(work / "metrics.jsonl"), "--coco-evaluation", *on_card,
+         *data, "--val-annotations", str(csv_dir / "val_annotations.csv")])
+    recs = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+    epochs = [r for r in recs if "epoch_loss" in r]
+    require(len(epochs) == TABLE_EPOCHS and all(
+        all(isinstance(r.get(k), float) for k in COCO_KEYS) and "AP_table" in r
+        for r in epochs), f"epoch records {epochs}")
+    losses = [r["loss"] for r in recs if "step" in r]
+    require(len(losses) == total_steps and np.isfinite(losses).all(), f"losses {losses}")
+    t = launches["train"]
+    require(t["stem"] >= total_steps and t["stem_bwd"] >= total_steps and t["nms"] >= 1,
+            f"train skipped a kernel: {t}")
+
+    # 3. the last snapshot -> two bundles
+    bundle, bundle_nonms = work / "model.tdn", work / "model_nonms.tdn"
+    run("convert_model", convert_model.main, [str(snaps), str(bundle)])
+    run("convert_model_no_nms", convert_model.main,
+        [str(snaps), str(bundle_nonms), "--no-nms", "--config", str(work / "anchors.ini")])
+    payload = torch.load(snaps / str(total_steps) / "state.pt", weights_only=True)
+    want = variables_from_torch_state({**payload["params"], **payload["batch_stats"]})
+    metas = {}
+    for path in (bundle, bundle_nonms):
+        _, variables, metas[path.name] = load_model(str(path))
+        require(_tree_equal(variables, want), f"{path.name}: weights differ from the checkpoint's")
+    require(metas["model.tdn"]["inference"]["nms"] is True
+            and metas["model.tdn"]["anchors"] is None
+            and metas["model_nonms.tdn"]["inference"]["nms"] is False
+            and metas["model_nonms.tdn"]["anchors"]["scales"] == [1.0, 1.2, 1.6],
+            f"bundle meta {metas}")
+    del payload, want
+    shutil.rmtree(snaps)  # ~0.4 GB a snapshot (weights and Adam moments)
+
+    # 4. evaluate --coco on the bundle
+    card = ["--bf16", "--device-normalize", *sides, *on_card]
+    out = run("evaluate_coco", evaluate.main, ["--coco", *card, *data, str(bundle)])
+    require(len(out) == 16 and "instances of class table with average precision" in out[0]
+            and out[1].startswith("mAP using the weighted average")
+            and out[2].startswith("mAP: ")
+            and all(x.startswith((" Average Precision", " Average Recall")) for x in out[3:15])
+            and out[15].startswith("AP_table: "), f"evaluate --coco printed {out}")
+    voc, summary = out[:3], out[3:]
+
+    # 5. predict --labels: a threshold that draws TABLE_DRAWN or more a page
+    shown = paths[:TABLE_PREDICT]
+    argv = [str(bundle), *shown, "--labels", str(csv_dir / "classes.csv"),
+            "--output-dir", str(work / "predict"), "--bf16", "--device-normalize", *on_card]
+    probe = predict.predictor_from_bundle(str(bundle), predict.parse_args(argv),
+                                          device_preprocess=True)
+    raw = {p: probe(read_image_bgr(p)) for p in shown}
+    thr = min(float(np.sort(r[1])[::-1][TABLE_DRAWN - 1]) for r in raw.values()) - 1e-4
+    require(thr > 0.05, f"fewer than {TABLE_DRAWN} detections on a page (threshold {thr})")
+    del probe
+    run("predict", predict.main, [*argv, "--score-threshold", repr(thr)])
+    lines = [json.loads(x) for x in (work / "predict" / "detections.jsonl").read_text().splitlines()]
+    require([x["image"] for x in lines] == shown, "one JSONL line a page, in order")
+    names = {0: "table"}.get
+    drawn = 0
+    for line in lines:
+        page = read_image_bgr(line["image"]).astype(np.uint8)
+        copy = work / "predict" / f"det_{Path(line['image']).stem}.png"
+        dets = line["detections"]
+        # the JSONL holds the probe's detections above the threshold, rounded
+        b, sc, lb = raw[line["image"]]
+        keep = np.where(sc > thr)[0]
+        require(dets == [{"box": [round(float(v), 2) for v in b[i]],
+                          "score": round(float(sc[i]), 4), "label": int(lb[i])}
+                         for i in keep],
+                f"{copy.name}: the JSONL differs from the same predictor's detections")
+        require(len(dets) >= TABLE_DRAWN, f"{copy.name}: {len(dets)} detections drawn")
+        drawn += len(dets)
+        redraw = page.copy()
+        draw_detections(redraw, b, sc, lb, label_to_name=names, score_threshold=thr)
+        write_image_bgr(work / "redraw.png", redraw)
+        require((work / "redraw.png").read_bytes() == copy.read_bytes(),
+                f"{copy.name} differs from draw_detections of its JSONL line's detections")
+        boxes_only = page.copy()
+        for d in dets:
+            draw_box(boxes_only, d["box"], label_color(d["label"]))
+        require((redraw != boxes_only).any(axis=2).sum() > 50, f"{copy.name}: no captions")
+    del raw
+
+    # 6. export_keras, then the .h5 back
+    h5 = work / "model.h5"
+    run("export_keras", export_keras.main, [str(bundle), str(h5)])
+    _, variables, _ = load_model(str(bundle))
+    back = load_initial_weights(str(h5), random_variables(1, "resnet50", seed=SEED + 1),
+                                verbose=False)
+    require(_tree_equal(back, variables), "the .h5 does not load back to the bundle's weights")
+    del back, variables
+    out = run("evaluate_h5", evaluate.main, [*card, *data, str(h5)])
+    require(out[0].startswith("keras h5 import: matched ") and out[1:] == voc,
+            f"evaluate on the .h5 printed {out}, on the .tdn {voc}")
+
+    # 7. debug --anchors
+    out = run("debug", debug.main, ["--output-dir", str(work / "debug"), "--anchors",
+                                    "--limit", "2", *sides, *data])
+    written = sorted(p.name for p in (work / "debug").glob("debug_*.png"))
+    require(len(written) == 2 and len(out) == 2, f"debug wrote {written}: {out}")
+
+    total = {k: sum(step[k] for step in launches.values()) for k in counters}
+    require(total["stem"] >= 1 and total["stem_bwd"] >= 1 and total["nms"] >= 1,
+            f"table_workflow skipped a kernel: {total}")
+    emit({"phase": "table_workflow", "ok": True, "model": "resnet50 retinanet, 1 class",
+          "pages": TABLE_PAGES + 1, "csv_rows": len(want_rows), "val_pages": len(val_pages),
+          "train": {"dtype": "bfloat16", "batch": TABLE_BATCH, "steps": total_steps,
+                    "loss_first": losses[0], "loss_last": losses[-1],
+                    "epoch_coco": [{k: r[k] for k in ("AP", "AP50", "AR100")} for r in epochs]},
+          "evaluate_coco": {"voc": voc, "summary": summary},
+          "predict": {"pages": len(shown), "score_threshold": thr, "detections_drawn": drawn},
+          "bundle_MB": bundle.stat().st_size / 1e6, "h5_MB": h5.stat().st_size / 1e6,
+          "seconds": seconds, "launches": launches, "launches_total": total,
+          "phase_seconds": time.monotonic() - t_phase})
+    return total
+
+
 def main() -> int:
     if not (ROOT / "tdnet_torch" / "__init__.py").is_file():
         print("chip_smoke: tdnet_torch/ is missing next to this script",
@@ -2665,6 +2919,8 @@ def main() -> int:
         serve_launches = phase_serve(dev)
         phase = "cli"
         cli_launches = phase_cli(dev)
+        phase = "table_workflow"
+        table_launches = phase_table_workflow(dev)
     except Exception as exc:  # report the failed phase, print no result
         import traceback
 
@@ -2674,11 +2930,11 @@ def main() -> int:
 
     # launches: the main paths' runs (predict's two routes, training, the
     # train CLI and its initial-weight flags, config 5, config 4, the other
-    # backbone families, serving, the CLIs); conv1x1 (B7) is wired into no
-    # model, in the JAX package too, so no path launches it
+    # backbone families, serving, the CLIs, the table workflow); conv1x1 (B7)
+    # is wired into no model, in the JAX package too, so no path launches it
     runs = (launches, train_launches, train_cli_launches, init_launches,
             soft_launches, r101_launches, backbone_launches, serve_launches,
-            cli_launches)
+            cli_launches, table_launches)
     sources = {
         "ingest": ("tdnet_torch/csrc/ingest.cu", "tdnet/ops/pallas_ingest.py:137"),
         "stem": ("tdnet_torch/csrc/stem.cu", "tdnet/ops/pallas_stem.py:676"),

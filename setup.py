@@ -37,7 +37,7 @@ setup(
     packages=find_packages(include=["tdnet", "tdnet.*",
                                     "tdnet_torch", "tdnet_torch.*"]),
     package_data={"tdnet.native": ["*.cpp"],
-                  "tdnet_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "tdnet_torch": ["csrc/*.cu", "csrc/*.cuh", "utils/*.npz"]},
     python_requires=">=3.10",
     cmdclass={"build_native": BuildNative},
     entry_points={
@@ -56,6 +56,10 @@ setup(
             "tdnet-torch-predict=tdnet_torch.bin.predict:main",
             "tdnet-torch-evaluate=tdnet_torch.bin.evaluate:main",
             "tdnet-torch-train=tdnet_torch.bin.train:main",
+            "tdnet-torch-convert-model=tdnet_torch.bin.convert_model:main",
+            "tdnet-torch-export-keras=tdnet_torch.bin.export_keras:main",
+            "tdnet-torch-csv-from-xml=tdnet_torch.bin.csv_from_xml:main",
+            "tdnet-torch-debug=tdnet_torch.bin.debug:main",
             # reference-compatible aliases (keras-retinanet console scripts)
             "retinanet-train=tdnet.bin.train:main",
             "retinanet-evaluate=tdnet.bin.evaluate:main",

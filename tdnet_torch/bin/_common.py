@@ -6,13 +6,15 @@ reference and raise (ROADMAP A14)."""
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional
 
 from tdnet_torch.data.csv_dataset import CSVDataset
 from tdnet_torch.ops.anchors import AnchorParameters
 from tdnet_torch.utils.config import parse_anchor_parameters, read_config_file
 
-__all__ = ["add_dataset_args", "make_dataset", "anchor_params_from_args"]
+__all__ = ["add_dataset_args", "make_dataset", "anchor_params_from_args",
+           "ensure_parent_dir"]
 
 # subcommand -> (root positional, split options (name, default))
 _OTHER_DATASETS = {
@@ -66,3 +68,7 @@ def anchor_params_from_args(args) -> Optional[AnchorParameters]:
     if not config_path:
         return None
     return parse_anchor_parameters(read_config_file(config_path))
+
+
+def ensure_parent_dir(path: str) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

@@ -2,12 +2,13 @@
 
     python -m tdnet_torch.bin.evaluate csv annotations.csv classes.csv model.tdn
 
-Prints per-class AP and the (weighted) mAP in the reference's format.
+Prints per-class AP and the (weighted) mAP in the reference's format, and
+with ``--coco`` the 12-line COCO summary and the per-class COCO AP.
 ``model`` is a ``.tdn`` bundle, a checkpoint directory written by
 ``tdnet_torch/train/checkpoint.py`` or a keras-retinanet ``.h5`` (for
 these two, ``--backbone`` and the dataset's classes describe the
 architecture). Runs on CUDA unless ``--device cpu``. Not ported yet:
-``--distributed`` (A16) and ``--coco`` (A14); each raises.
+``--distributed`` (A16), which raises.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from tdnet_torch.ops.anchors import AnchorParameters
 from tdnet_torch.train.checkpoint import Checkpointer
 from tdnet_torch.train.predictor import Predictor
 from tdnet_torch.train.weights import load_initial_weights
+from tdnet_torch.utils.coco_eval import evaluate_coco, summarize_coco
 from tdnet_torch.utils.eval import evaluate
 from tdnet_torch.weights import random_variables
 
@@ -43,7 +45,7 @@ def parse_args(argv=None):
     parser.add_argument("--image-max-side", default=1333, type=int)
     parser.add_argument("--bf16", action="store_true")
     parser.add_argument("--coco", action="store_true",
-                        help="the COCO summary: not ported yet (ROADMAP A14)")
+                        help="also report the COCO 12-metric summary")
     parser.add_argument("--no-pallas", dest="use_pallas", action="store_false",
                         default=None, help="the plain route: CPU only")
     parser.add_argument("--pre-nms-top-k", default=1024, type=int)
@@ -99,9 +101,6 @@ def main(argv=None) -> int:
     if args.distributed:
         raise NotImplementedError("--distributed (sharded evaluation) is not "
                                   "ported yet (ROADMAP A16)")
-    if args.coco:
-        raise NotImplementedError("--coco (utils/coco_eval.py) is not ported "
-                                  "yet (ROADMAP A14)")
     dataset = make_dataset(args, "train")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model, variables, anchors, meta = load_any_model(
@@ -129,6 +128,10 @@ def main(argv=None) -> int:
     aps = evaluate(dataset, predictor, iou_threshold=args.iou_threshold,
                    score_threshold=args.score_threshold,
                    max_detections=args.max_detections)
+    # the reference predicts the dataset a second time for the COCO summary
+    coco_res = (evaluate_coco(dataset, predictor, score_threshold=args.score_threshold,
+                              max_detections=args.max_detections)
+                if args.coco else None)
 
     # the reference's output format
     total_instances, weighted, simple_sum, present = 0, 0.0, 0.0, 0
@@ -146,6 +149,11 @@ def main(argv=None) -> int:
     print(f"mAP using the weighted average of precisions among classes: "
           f"{weighted / total_instances:.4f}")
     print(f"mAP: {simple_sum / max(present, 1):.4f}")
+    if coco_res is not None:
+        print(summarize_coco(coco_res))
+        for k, v in coco_res.items():
+            if k.startswith("AP_") and k not in ("AP_small", "AP_medium", "AP_large"):
+                print(f"{k}: {v:.4f}")
     return 0
 
 

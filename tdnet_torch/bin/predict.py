@@ -36,8 +36,7 @@ def parse_args(argv=None):
     parser.add_argument("--score-threshold", default=0.5, type=float,
                         help="drawing and report threshold")
     parser.add_argument("--labels", default=None, type=str,
-                        help="classes.csv for label names; the reference draws "
-                             "them as captions, which the port leaves out")
+                        help="classes.csv: caption boxes with class names")
     parser.add_argument("--bf16", action="store_true")
     parser.add_argument("--device-normalize", action="store_true",
                         help="ship uint8 and normalize on the device (with a "
@@ -102,8 +101,10 @@ def main(argv=None) -> int:
     os.makedirs(args.output_dir, exist_ok=True)
     predictor = predictor_from_bundle(args.model, args,
                                       device_preprocess=args.device_normalize)
+    label_to_name = None
     if args.labels:
-        label_names_from_csv(args.labels)  # parse errors as in the reference
+        names = label_names_from_csv(args.labels)
+        label_to_name = lambda label: names.get(label, str(label))  # noqa: E731
 
     jsonl_path = os.path.join(args.output_dir, "detections.jsonl")
     with open(jsonl_path, "w") as jf:
@@ -113,7 +114,7 @@ def main(argv=None) -> int:
             boxes, scores, labels = predictor(image)
             dt = time.perf_counter() - t0
             draw = np.clip(image, 0, 255).astype(np.uint8)
-            draw_detections(draw, boxes, scores, labels,
+            draw_detections(draw, boxes, scores, labels, label_to_name=label_to_name,
                             score_threshold=args.score_threshold)
             stem = os.path.splitext(os.path.basename(path))[0]
             out_path = os.path.join(args.output_dir, f"det_{stem}.png")

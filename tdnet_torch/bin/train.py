@@ -4,7 +4,8 @@
 
 The reference's flags and defaults: Adam lr 1e-5 with clipnorm 1e-3, batch
 size 1, 10000 steps an epoch, 50 epochs, a checkpoint every epoch, optional
-per-epoch mAP (``--evaluation`` with ``--val-annotations``) and
+per-epoch mAP (``--evaluation`` with ``--val-annotations``; with
+``--coco-evaluation`` the COCO summary's numeric keys in its place) and
 ReduceLROnPlateau(loss, 0.1, patience 2). Runs on CUDA unless ``--device
 cpu``; ``--backbone`` takes every name of ``models.backbone``. With
 ``--device-normalize`` a ResNet or SE-ResNet trains through the fused
@@ -32,9 +33,8 @@ image (``data/transform.py``); ``--tensorboard-dir`` writes TensorBoard
 scalars of every metrics record (``train/events.py``).
 
 Not ported yet; each parses, then raises naming its ROADMAP item:
-``--coco-evaluation`` (A14.4); ``--spatial``, ``--tensor-parallel``,
-``--zero``, ``--pipeline``, ``--microbatches`` and ``--distributed``
-(A16).
+``--spatial``, ``--tensor-parallel``, ``--zero``, ``--pipeline``,
+``--microbatches`` and ``--distributed`` (A16).
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ from tdnet_torch.train.predictor import Predictor
 from tdnet_torch.train.step import create_optimizer, create_train_state, make_train_step
 from tdnet_torch.train.weights import (bn_warmup, imagenet_weights_or_explain,
                                        load_initial_weights)
+from tdnet_torch.utils.coco_eval import evaluate_coco
 from tdnet_torch.utils.eval import evaluate
 from tdnet_torch.weights import random_variables, variables_from_torch_state
 
@@ -111,7 +112,8 @@ def parse_args(argv=None):
     parser.add_argument("--evaluation", dest="evaluation", action="store_true",
                         help="run mAP evaluation each epoch (needs --val-annotations)")
     parser.add_argument("--coco-evaluation", action="store_true",
-                        help="not ported yet (ROADMAP A14.4)")
+                        help="per-epoch COCO 12-metric evaluation instead of "
+                             "VOC mAP (needs --val-annotations)")
     parser.add_argument("--score-threshold", default=0.05, type=float)
     parser.add_argument("--seed", default=0, type=int,
                         help="loader shuffle and, without --weights, the random "
@@ -181,7 +183,6 @@ def _refuse_unported(args) -> None:
     """Flags whose parts come later raise, naming their ROADMAP item; at
     their defaults they pass."""
     for flag, used, item in (
-        ("--coco-evaluation", args.coco_evaluation, "A14.4"),
         ("--spatial", args.spatial > 1, "A16"),
         ("--tensor-parallel", args.tensor_parallel > 1, "A16"),
         ("--zero", args.zero, "A16"),
@@ -280,7 +281,7 @@ def main(argv=None) -> int:
             train_step = _nan_checked(train_step)
 
         evaluate_fn = None
-        if args.evaluation and val_ds is not None:
+        if (args.evaluation or args.coco_evaluation) and val_ds is not None:
             # one Predictor over the live training model: no copy of the weights
             predictor = Predictor(
                 model,
@@ -302,6 +303,10 @@ def main(argv=None) -> int:
                 model.eval()
                 model.output_dtype = eval_output_dtype
                 try:
+                    if args.coco_evaluation:
+                        # the numeric keys: AP ... AR_large and AP_<name>
+                        return {k: float(v)
+                                for k, v in evaluate_coco(val_ds, predictor).items()}
                     aps = evaluate(val_ds, predictor)
                 finally:
                     model.output_dtype = torch.float32

@@ -147,7 +147,8 @@ def load_initial_weights(path: str, variables: Dict[str, Any],
 
     raise ValueError(
         f"unrecognized weights file {path!r} (expected .tdn, .h5/.hdf5, or "
-        "an orbax snapshot directory)"
+        "one of the port's checkpoint directories; a reference orbax snapshot "
+        "converts to a .tdn with the reference's convert_model)"
     )
 
 

@@ -486,9 +486,9 @@ def test_predict_and_evaluate_clis_on_cpu(tiny_bundle, tmp_path, capsys):
 
 
 def test_cli_options_the_port_does_not_run_yet(tiny_bundle, tmp_path, capsys):
-    """--distributed, --coco and other datasets raise naming their ROADMAP
-    items; a keras .h5 model (ported) evaluates as the .tdn of the same
-    weights does."""
+    """--distributed and other datasets raise naming their ROADMAP items; a
+    keras .h5 model (ported) evaluates as the .tdn of the same weights
+    does."""
     from tdnet_torch.bin import evaluate, predict
     from tdnet_torch.compat.keras_import import export_random_keras_weights
     from tdnet_torch.models.io import load_model
@@ -498,8 +498,6 @@ def test_cli_options_the_port_does_not_run_yet(tiny_bundle, tmp_path, capsys):
     cpu = ["--device", "cpu"]
     with pytest.raises(NotImplementedError, match="A16"):
         evaluate.main([*cpu, "--distributed", "x:1,2,0", *csv_args, model])
-    with pytest.raises(NotImplementedError, match="A14"):
-        evaluate.main([*cpu, "--coco", *csv_args, model])
     with pytest.raises(FileNotFoundError):  # .h5 is ported: as h5py, a missing file
         evaluate.main([*cpu, *csv_args, "weights.h5"])
     with pytest.raises(NotImplementedError, match="A14"):

@@ -315,7 +315,8 @@ def test_load_initial_weights_equals_reference(two_class, port_run, capsys):
     weights, written by the port): the same leaves and dtypes, the same
     printed lines. A port checkpoint directory loads its latest weights
     (the run's last snapshot, which its bundle also holds); other files
-    raise as the reference does."""
+    raise as the reference does, the port's message naming what it reads
+    in the reference's place of an orbax snapshot."""
     from tdnet.train.weights import load_initial_weights as ref_load
     from tdnet_torch.models.io import load_model
     from tdnet_torch.train.weights import load_initial_weights
@@ -357,11 +358,14 @@ def test_load_initial_weights_equals_reference(two_class, port_run, capsys):
         load_initial_weights("w.pkl", template)
     with pytest.raises(ValueError) as e_want:
         ref_load("w.pkl", template)
-    assert str(e_got.value) == str(e_want.value)
+    head = "unrecognized weights file 'w.pkl' (expected .tdn, .h5/.hdf5, or "
+    assert str(e_want.value) == head + "an orbax snapshot directory)"
+    assert str(e_got.value) == head + (
+        "one of the port's checkpoint directories; a reference orbax snapshot "
+        "converts to a .tdn with the reference's convert_model)")
 
 
 UNPORTED = [
-    (["--coco-evaluation"], "A14.4"),
     (["--spatial", "2"], "A16"),
     (["--tensor-parallel", "2"], "A16"),
     (["--zero"], "A16"),
