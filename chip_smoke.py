@@ -43,7 +43,11 @@ family):
 - the table workflow's tools chained on ResNet-50: VOC XML ->
   ``csv_from_xml`` -> ``train --coco-evaluation`` -> ``convert_model`` ->
   ``evaluate --coco`` -> ``predict --labels`` (captioned pages) ->
-  ``export_keras`` -> ``evaluate`` of the ``.h5``, and ``debug``.
+  ``export_keras`` -> ``evaluate`` of the ``.h5``, and ``debug``;
+- JPEG and BMP pages (``tests/golden/jpeg``, both decode routes held to
+  the references' digests) through ``train pascal``, ``evaluate`` of
+  Pascal VOC, COCO (``--coco``), Open Images and KITTI layouts,
+  ``predict`` and ``serve``.
 
 The fused 1x1 conv kernel (B7) is wired into no model, so only the kernel
 check runs it.
@@ -148,6 +152,12 @@ strides = 8 16 32 64 128
 ratios  = 0.5 1 2
 scales  = 1 1.2 1.6
 """
+# the datasets phase: the full-size JPEG pages of tests/golden/jpeg
+# (tools/make_jpeg_pages.py; each file's two reference decodes by SHA-256
+# in digests.json), in a VOC, a COCO, an Open Images and a KITTI layout;
+# train pascal for DATASET_STEPS bf16 steps at batch DATASET_BATCH
+JPEG_PAGES = ROOT / "tests" / "golden" / "jpeg"
+DATASET_BATCH, DATASET_STEPS = 2, 2
 R101_SIDE, R101_PAGE, R101_PAGES = 1024, (1100, 1000), 16  # -> 1024x931, bucket 1024^2
 # the backbones phase: one RetinaNet of each other family, full width and
 # depth; CUDA-vs-CPU parity at 512x512 (pages of R101's parity), 2 bf16 train
@@ -2624,7 +2634,7 @@ def phase_cli(dev):
     require([x["image"] for x in lines] == paths, "one JSONL line a page, in order")
     worst, n = 0.0, 0
     for line, page in zip(lines, pages):
-        worst = max(worst, _served_match(line["detections"], direct(page), thr))
+        worst = max(worst, _served_match(line["detections"], probe(page), thr))
         n += len(line["detections"])
         require((work / "out" / f"det_{Path(line['image']).stem}.png").is_file(),
                 "annotated copy missing")
@@ -2662,6 +2672,29 @@ def _tree_equal(got, want) -> bool:
     got, want = np.asarray(got), np.asarray(want)
     return got.dtype == want.dtype and got.shape == want.shape and \
         got.tobytes() == want.tobytes()
+
+
+def _tool_runner(dev, counters, seconds, launches):
+    """run(step, main, argv): one tool's main, the counters set to 0 just
+    before it and read just after into ``launches[step]``, its seconds into
+    ``seconds[step]``; returns its printed lines and requires exit code 0."""
+
+    def run(step, main, argv):
+        log = io.StringIO()
+        for c in counters.values():
+            c.reset()
+        sync(dev)
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(log):
+            rc = main(argv)
+        sync(dev)
+        seconds[step] = time.monotonic() - t0
+        launches[step] = {k: c.count for k, c in counters.items()}
+        out = log.getvalue().splitlines()
+        require(rc == 0, f"{step} exited {rc}: {out[-5:]}")
+        return out
+
+    return run
 
 
 def phase_table_workflow(dev):
@@ -2720,23 +2753,7 @@ def phase_table_workflow(dev):
 
     counters = {**_all_counters(), "stem_bwd": stem.BWD_LAUNCHES}
     seconds, launches = {}, {}
-
-    def run(step, main, argv):
-        """One tool's main, its counters set to 0 just before and read just
-        after; its printed lines."""
-        log = io.StringIO()
-        for c in counters.values():
-            c.reset()
-        sync(dev)
-        t0 = time.monotonic()
-        with contextlib.redirect_stdout(log):
-            rc = main(argv)
-        sync(dev)
-        seconds[step] = time.monotonic() - t0
-        launches[step] = {k: c.count for k, c in counters.items()}
-        out = log.getvalue().splitlines()
-        require(rc == 0, f"{step} exited {rc}: {out[-5:]}")
-        return out
+    run = _tool_runner(dev, counters, seconds, launches)
 
     csv_dir, snaps = work / "csv", work / "snapshots"
     data = ["csv", str(csv_dir / "annotations.csv"), str(csv_dir / "classes.csv")]
@@ -2877,6 +2894,275 @@ def phase_table_workflow(dev):
     return total
 
 
+def _bmp24(bgr) -> bytes:
+    """An (H, W, 3) uint8 BGR page as a 24-bit bottom-up BMP."""
+    import struct
+
+    import numpy as np
+
+    h, w = bgr.shape[:2]
+    rows = np.zeros((h, (3 * w + 3) // 4 * 4), np.uint8)
+    rows[:, :3 * w] = bgr.reshape(h, 3 * w)
+    body = rows[::-1].tobytes()
+    return struct.pack("<2sIHHIIiiHHIIiiII", b"BM", 54 + len(body), 0, 0, 54, 40, w, h,
+                       1, 24, 0, len(body), 2835, 2835, 0, 0) + body
+
+
+def _sha256(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def phase_datasets(dev):
+    """JPEG and BMP pages through the dataset CLIs on the card, ResNet-50
+    at full width and depth: the four full-size JPEG pages of
+    ``tests/golden/jpeg`` decoded by both routes (file: PIL's; body: cv2's,
+    which turns the EXIF-6 page upright), each SHA-256 equal to the
+    references' in ``digests.json``, and ``image_size`` equal to the frame
+    header; a BMP page written here with numpy, decoded to its pixels. Then
+    a VOCdevkit of the pages (one XML a page, class diningtable) ->
+    ``train pascal`` (bf16, batch 2, 2 steps, random 20-class weights, a
+    bundle) -> ``evaluate pascal --set-name test`` on it; a COCO layout ->
+    ``evaluate --coco coco``; an Open Images layout (normalised boxes,
+    ``--labels-filter``) and a KITTI layout (PNG pages) -> ``evaluate``;
+    ``predict`` on the JPEG pages and the BMP (each page's detections a
+    direct predictor's on the port's decode); the JPEG and BMP files POSTed
+    to ``serve`` (each answer the predictor's on the port's cv2-route
+    decode, the EXIF-6 page's on the upright page). The evaluations, predict
+    and serve use one 1-class bundle (smoke_variables, f32 through the
+    fused stem, device normalize) and bf16 where the tool takes it. Each
+    step's launch counters set to 0 just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from tdnet_torch.bin import evaluate, predict, train
+    from tdnet_torch.data import bmp, jpeg
+    from tdnet_torch.data.image import image_size, read_image_bgr, write_image_bgr
+    from tdnet_torch.models.io import load_model, save_model
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.ops import stem
+    from tdnet_torch.train.predictor import Predictor
+
+    t_phase = time.monotonic()
+    work = ROOT / "build" / "chip_smoke" / "datasets"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    digests = json.loads((JPEG_PAGES / "digests.json").read_text())
+    names = sorted(digests)
+    require(len(names) == 4, f"{len(names)} JPEG pages in {JPEG_PAGES}")
+
+    # 1. both decode routes against the references' digests
+    decode_ms = {"pil": {}, "cv2": {}}
+    files, pil_bgr, cv2_bgr = {}, {}, {}
+    for name in names:
+        path, info = JPEG_PAGES / name, digests[name]
+        files[name] = data = path.read_bytes()
+        t0 = time.perf_counter()
+        rgb = jpeg.decode_jpeg(data, route="pil")
+        t1 = time.perf_counter()
+        body = jpeg.decode_jpeg(data, route="cv2")
+        t2 = time.perf_counter()
+        decode_ms["pil"][name], decode_ms["cv2"][name] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+        pil_bgr[name] = np.ascontiguousarray(rgb[:, :, ::-1])
+        cv2_bgr[name] = np.ascontiguousarray(body[:, :, ::-1])
+        require(_sha256(rgb) == info["pil_rgb_sha256"], f"{name}: file route differs from PIL")
+        require(_sha256(cv2_bgr[name]) == info["cv2_bgr_sha256"],
+                f"{name}: body route differs from cv2.imdecode")
+        size = (rgb.shape[1], rgb.shape[0])
+        require(image_size(path) == jpeg.jpeg_size(data) == tuple(info["size"]) == size,
+                f"{name}: image_size {image_size(path)}, header {jpeg.jpeg_size(data)}, "
+                f"decoded {size}")
+    turned = [n for n in names if cv2_bgr[n].shape != pil_bgr[n].shape]
+    require(len(turned) == 1 and np.array_equal(np.rot90(cv2_bgr[turned[0]], 1),
+                                                pil_bgr[turned[0]]),
+            f"the EXIF-6 page is not turned upright by the body route: {turned}")
+    landscape = [n for n in names if pil_bgr[n].shape[1] > pil_bgr[n].shape[0]]
+    bmp_path = work / "page.bmp"
+    bmp_path.write_bytes(_bmp24(pil_bgr[names[0]]))
+    t0 = time.perf_counter()
+    bmp_page = read_image_bgr(bmp_path)
+    bmp_ms = (time.perf_counter() - t0) * 1e3
+    require(np.array_equal(bmp_page, pil_bgr[names[0]])
+            and np.array_equal(bmp.decode_bmp(bmp_path.read_bytes(), "cv2")[:, :, ::-1],
+                               pil_bgr[names[0]]),
+            "the BMP page does not decode to the pixels written")
+
+    # 2. the layouts
+    voc = work / "VOCdevkit" / "VOC2007"
+    for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
+        (voc / d).mkdir(parents=True)
+    stems = [Path(n).stem for n in names]
+    for name, stem_name in zip(names, stems):
+        (voc / "JPEGImages" / name).write_bytes(files[name])
+        objects = "".join(  # VOC coordinates count from 1
+            "<object><name>diningtable</name><bndbox>" + "".join(
+                f"<{k}>{v + 1}</{k}>" for k, v in zip(("xmin", "ymin", "xmax", "ymax"), b))
+            + "</bndbox></object>" for b in digests[name]["boxes"])
+        (voc / "Annotations" / f"{stem_name}.xml").write_text(
+            f"<annotation><filename>{name}</filename>{objects}</annotation>")
+    test_set = [Path(landscape[0]).stem, Path(turned[0]).stem]
+    (voc / "ImageSets" / "Main" / "trainval.txt").write_text("\n".join(stems) + "\n")
+    (voc / "ImageSets" / "Main" / "test.txt").write_text("\n".join(test_set) + "\n")
+
+    coco = work / "coco"
+    (coco / "annotations").mkdir(parents=True)
+    (coco / "images" / "val2017").mkdir(parents=True)
+    images, anns = [], []
+    for i, name in enumerate(names):
+        (coco / "images" / "val2017" / name).write_bytes(files[name])
+        w, h = digests[name]["size"]
+        images.append({"id": i + 1, "file_name": name, "width": w, "height": h})
+        anns += [{"id": len(anns) + 1, "image_id": i + 1, "category_id": 1,
+                  "bbox": [b[0], b[1], b[2] - b[0], b[3] - b[1]], "iscrowd": 0,
+                  "area": (b[2] - b[0]) * (b[3] - b[1])} for b in digests[name]["boxes"]]
+    (coco / "annotations" / "instances_val2017.json").write_text(json.dumps(
+        {"images": images, "annotations": anns,
+         "categories": [{"id": 1, "name": "table"}]}))
+
+    oi = work / "oi"
+    (oi / "annotations").mkdir(parents=True)
+    (oi / "images" / "validation").mkdir(parents=True)
+    (oi / "annotations" / "class-descriptions-boxable.csv").write_text(
+        "/m/04bcr3,Table\n/m/0c_jw,Furniture\n")
+    rows = ["ImageID,Source,LabelName,Confidence,XMin,XMax,YMin,YMax,IsOccluded"]
+    for name in landscape:
+        (oi / "images" / "validation" / f"{Path(name).stem}.jpg").write_bytes(files[name])
+        w, h = digests[name]["size"]
+        for mid, boxes in (("/m/04bcr3", digests[name]["boxes"]), ("/m/0c_jw", [[0, 0, w, h]])):
+            rows += [f"{Path(name).stem},xclick,{mid},1,{b[0] / w!r},{b[2] / w!r},"
+                     f"{b[1] / h!r},{b[3] / h!r},0" for b in boxes]
+    (oi / "annotations" / "validation-annotations-bbox.csv").write_text("\n".join(rows) + "\n")
+
+    kitti = work / "kitti" / "train"
+    (kitti / "images").mkdir(parents=True)
+    (kitti / "labels").mkdir()
+    for i, name in enumerate(landscape):
+        write_image_bgr(kitti / "images" / f"{i:06d}.png", pil_bgr[name])
+        (kitti / "labels" / f"{i:06d}.txt").write_text("".join(
+            f"Car 0.00 0 0.00 {b[0]:.2f} {b[1]:.2f} {b[2]:.2f} {b[3]:.2f} "
+            "1.50 1.60 3.90 1.80 1.50 8.50 0.00\n" for b in digests[name]["boxes"]))
+
+    bundle = work / "table.tdn"
+    with torch.device("meta"):
+        record = RetinaNet(1)  # the model record save_model reads
+    save_model(str(bundle), record, smoke_variables(),
+               inference_config={"min_side": MIN_SIDE, "max_side": MAX_SIDE})
+
+    counters = {**_all_counters(), "stem_bwd": stem.BWD_LAUNCHES}
+    seconds, launches = {}, {}
+    run = _tool_runner(dev, counters, seconds, launches)
+    sides = ["--image-min-side", str(MIN_SIDE), "--image-max-side", str(MAX_SIDE)]
+    on_card = ["--device", dev.type]
+    card = ["--device-normalize", *sides, *on_card]
+
+    # 3. train pascal, then evaluate pascal on its bundle
+    voc_bundle = work / "voc.tdn"
+    run("train_pascal", train.main,
+        ["--bf16", "--batch-size", str(DATASET_BATCH), "--epochs", "1",
+         "--steps", str(DATASET_STEPS), "--log-every", "1", "--no-snapshots",
+         "--model-path", str(voc_bundle), "--metrics-path", str(work / "metrics.jsonl"),
+         *card, "pascal", str(voc)])
+    recs = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in recs if "step" in r]
+    require(len(losses) == DATASET_STEPS and np.isfinite(losses).all(), f"losses {losses}")
+    out = run("evaluate_pascal", evaluate.main,
+              ["--bf16", *card, "pascal", str(voc), str(voc_bundle), "--set-name", "test"])
+    require(len(out) == 22 and any("instances of class diningtable" in x for x in out)
+            and out[-1].startswith("mAP: "), f"evaluate pascal printed {out}")
+    voc_lines = [x for x in out if "diningtable" in x or x.startswith("mAP")]
+
+    # 4. evaluate --coco coco, evaluate open_images and kitti
+    out = run("evaluate_coco", evaluate.main,
+              ["--coco", "--bf16", *card, "coco", str(coco), str(bundle),
+               "--set-name", "val2017"])
+    require(len(out) == 16 and out[15].startswith("AP_table: "), f"evaluate --coco printed {out}")
+    coco_lines = [out[0], out[2], out[3], out[15]]
+    out = run("evaluate_open_images", evaluate.main,
+              ["--bf16", *card, "open_images", str(oi), str(bundle), "--subset", "validation",
+               "--labels-filter", "Table"])
+    require(len(out) == 3 and "instances of class Table" in out[0], f"open_images printed {out}")
+    oi_lines = out
+    out = run("evaluate_kitti", evaluate.main,
+              ["--bf16", *card, "kitti", str(work / "kitti"), str(bundle), "--subset", "train"])
+    require(len(out) == 11 and any("instances of class Car" in x for x in out),
+            f"kitti printed {out}")
+    kitti_lines = [x for x in out if "class Car" in x or x.startswith("mAP")]
+
+    # 5. predict on the JPEG pages and the BMP (f32, device normalize)
+    model, variables, meta = load_model(str(bundle))
+    inference = dict(min_side=meta["inference"]["min_side"],
+                     max_side=meta["inference"]["max_side"])
+
+    def predictor(thr):
+        return Predictor(model, variables, device=dev, device_preprocess=True,
+                         score_threshold=thr, **inference)
+
+    paths = [str(JPEG_PAGES / n) for n in names] + [str(bmp_path)]
+    file_pages = [pil_bgr[n].astype(np.float32) for n in names] + [bmp_page]  # as read
+    probe = predictor(0.05)  # the predict CLI's: the bundle's threshold, then its own
+    thr, gap = _gap_threshold([probe(p) for p in file_pages])
+    run("predict", predict.main, [str(bundle), *paths, "--output-dir", str(work / "predict"),
+                                  "--score-threshold", repr(thr), "--device-normalize",
+                                  *on_card])
+    lines = [json.loads(x) for x in (work / "predict" / "detections.jsonl").read_text().splitlines()]
+    require([x["image"] for x in lines] == paths, "one JSONL line a page, in order")
+    worst, n_predict = 0.0, 0
+    for line, page in zip(lines, file_pages):
+        worst = max(worst, _served_match(line["detections"], probe(page), thr))
+        n_predict += len(line["detections"])
+    require(n_predict > 0, "predict compared no detections")
+
+    # 6. serve: the JPEG files and the BMP as bodies, one at a time
+    body_pages = [cv2_bgr[n] for n in names] + [pil_bgr[names[0]]]  # uint8, as decoded
+    bodies = [(files[n], "image/jpeg") for n in names] + [(bmp_path.read_bytes(), "image/bmp")]
+    direct = predictor(thr)
+    base, httpd, batcher = _serve(predictor(thr), max_batch=4,
+                                  max_delay_ms=SERVE_MAX_DELAY_MS, default_threshold=thr)
+    try:
+        for c in counters.values():
+            c.reset()
+        sync(dev)
+        t0 = time.monotonic()
+        answers = [_post(base, *b) for b in bodies]
+        sync(dev)
+        seconds["serve"] = time.monotonic() - t0
+        launches["serve"] = {k: c.count for k, c in counters.items()}
+    finally:
+        _stop(httpd, batcher)
+    require(all(a[0] == 200 for a in answers), f"serve answers {[a[:2] for a in answers]}")
+    serve_worst, n_served = 0.0, 0
+    for a, page in zip(answers, body_pages):
+        require(a[1]["image_hw"] == list(page.shape[:2]),
+                f"served image_hw {a[1]['image_hw']}, decoded {page.shape[:2]}")
+        serve_worst = max(serve_worst, _served_match(a[1]["detections"],
+                                                     direct.predict_batch([page])[0], thr))
+        n_served += len(a[1]["detections"])
+    require(n_served > 0, "serve compared no detections")
+
+    for step, got in launches.items():
+        want = ("stem", "stem_bwd") if step == "train_pascal" else ("stem", "nms")
+        require(all(got[k] >= 1 for k in want), f"{step} skipped a kernel: {got}")
+    total = {k: sum(step[k] for step in launches.values()) for k in counters}
+    emit({"phase": "datasets", "ok": True,
+          "pages": {n: {"bytes": digests[n]["bytes"], "size": digests[n]["size"]} for n in names},
+          "decode_ms": {r: {k: round(v, 1) for k, v in d.items()} for r, d in decode_ms.items()},
+          "decode_ms_mean": {r: sum(d.values()) / len(d) for r, d in decode_ms.items()},
+          "bmp_ms": bmp_ms, "exif6_page": turned[0],
+          "train_pascal": {"dtype": "bfloat16", "batch": DATASET_BATCH, "losses": losses},
+          "evaluate": {"pascal": voc_lines, "coco": coco_lines, "open_images": oi_lines,
+                       "kitti": kitti_lines},
+          "predict": {"pages": len(paths), "score_threshold": thr, "threshold_gap": gap,
+                      "detections_compared": n_predict, "max_box_diff_px": worst},
+          "serve": {"bodies": len(bodies), "detections_compared": n_served,
+                    "max_box_diff_px": serve_worst},
+          "seconds": seconds, "launches": launches, "launches_total": total,
+          "phase_seconds": time.monotonic() - t_phase})
+    return total
+
+
 def main() -> int:
     if not (ROOT / "tdnet_torch" / "__init__.py").is_file():
         print("chip_smoke: tdnet_torch/ is missing next to this script",
@@ -2921,6 +3207,8 @@ def main() -> int:
         cli_launches = phase_cli(dev)
         phase = "table_workflow"
         table_launches = phase_table_workflow(dev)
+        phase = "datasets"
+        dataset_launches = phase_datasets(dev)
     except Exception as exc:  # report the failed phase, print no result
         import traceback
 
@@ -2930,11 +3218,12 @@ def main() -> int:
 
     # launches: the main paths' runs (predict's two routes, training, the
     # train CLI and its initial-weight flags, config 5, config 4, the other
-    # backbone families, serving, the CLIs, the table workflow); conv1x1 (B7)
-    # is wired into no model, in the JAX package too, so no path launches it
+    # backbone families, serving, the CLIs, the table workflow, the JPEG and
+    # BMP pages through the dataset CLIs); conv1x1 (B7) is wired into no
+    # model, in the JAX package too, so no path launches it
     runs = (launches, train_launches, train_cli_launches, init_launches,
             soft_launches, r101_launches, backbone_launches, serve_launches,
-            cli_launches, table_launches)
+            cli_launches, table_launches, dataset_launches)
     sources = {
         "ingest": ("tdnet_torch/csrc/ingest.cu", "tdnet/ops/pallas_ingest.py:137"),
         "stem": ("tdnet_torch/csrc/stem.cu", "tdnet/ops/pallas_stem.py:676"),

@@ -1,7 +1,6 @@
 """Shared CLI plumbing, the counterpart of ``tdnet/bin/_common.py``: the
-dataset subcommands and the anchor config. The port reads CSV datasets;
-``pascal``, ``coco``, ``kitti`` and ``open_images`` parse as in the
-reference and raise (ROADMAP A14)."""
+dataset subcommands (``csv``, ``pascal``, ``coco``, ``kitti``,
+``open_images``) and the anchor config."""
 
 from __future__ import annotations
 
@@ -9,20 +8,29 @@ import argparse
 import os
 from typing import Optional
 
+from tdnet_torch.data.coco import CocoDataset
 from tdnet_torch.data.csv_dataset import CSVDataset
+from tdnet_torch.data.kitti import KittiDataset
+from tdnet_torch.data.open_images import OpenImagesDataset
+from tdnet_torch.data.pascal_voc import PascalVocDataset
 from tdnet_torch.ops.anchors import AnchorParameters
 from tdnet_torch.utils.config import parse_anchor_parameters, read_config_file
 
 __all__ = ["add_dataset_args", "make_dataset", "anchor_params_from_args",
            "ensure_parent_dir"]
 
-# subcommand -> (root positional, split options (name, default))
+# subcommand -> (help, root positional and its help, split options (name,
+# default, help))
 _OTHER_DATASETS = {
-    "pascal": ("pascal_path", (("--set-name", "trainval"), ("--val-set-name", "test"))),
-    "coco": ("coco_path", (("--set-name", "train2017"), ("--val-set-name", "val2017"))),
-    "kitti": ("kitti_path", (("--subset", "train"), ("--val-subset", "val"))),
-    "open_images": ("main_dir", (("--subset", "train"), ("--val-subset", "validation"),
-                                 ("--labels-filter", None))),
+    "pascal": ("Pascal VOC dataset (VOCdevkit)", ("pascal_path", "VOCdevkit directory"),
+               (("--set-name", "trainval", None), ("--val-set-name", "test", None))),
+    "coco": ("COCO-format dataset", ("coco_path", "COCO root directory"),
+             (("--set-name", "train2017", None), ("--val-set-name", "val2017", None))),
+    "kitti": ("KITTI dataset", ("kitti_path", "KITTI base directory"),
+              (("--subset", "train", None), ("--val-subset", "val", None))),
+    "open_images": ("Open Images dataset", ("main_dir", "Open Images root directory"),
+                    (("--subset", "train", None), ("--val-subset", "validation", None),
+                     ("--labels-filter", None, "comma-separated class names to keep"))),
 }
 
 
@@ -39,28 +47,40 @@ def add_dataset_args(parser: argparse.ArgumentParser, trailing=None) -> None:
         csv_parser.add_argument(name, help=help_text)
     csv_parser.add_argument("--val-annotations", default=None,
                             help="path to validation annotations.csv (optional)")
-    for kind, (root, options) in _OTHER_DATASETS.items():
-        p = sub.add_parser(kind, help=f"{kind} dataset (not ported yet)")
-        p.add_argument(root)
+    for kind, (kind_help, (root, root_help), options) in _OTHER_DATASETS.items():
+        p = sub.add_parser(kind, help=kind_help)
+        p.add_argument(root, help=root_help)
         for name, help_text in trailing:
             p.add_argument(name, help=help_text)
-        for flag, default in options:
-            p.add_argument(flag, default=default)
+        for flag, default, help_text in options:
+            p.add_argument(flag, default=default, help=help_text)
 
 
 def make_dataset(args, split: str = "train"):
-    """The train or val dataset of the parsed subcommand."""
+    """The train or val dataset of the parsed subcommand (``None`` for a csv
+    run without ``--val-annotations``)."""
     if split not in ("train", "val"):
         raise ValueError(split)
-    if args.dataset_type == "csv":
-        if split == "train":
+    train = split == "train"
+    t = args.dataset_type
+    if t == "csv":
+        if train:
             return CSVDataset(args.annotations, args.classes)
         if not getattr(args, "val_annotations", None):
             return None
         return CSVDataset(args.val_annotations, args.classes)
-    raise NotImplementedError(
-        f"dataset type {args.dataset_type!r} is not ported yet (ROADMAP A14); "
-        "the port reads csv datasets")
+    if t == "pascal":
+        return PascalVocDataset(args.pascal_path,
+                                args.set_name if train else args.val_set_name)
+    if t == "coco":
+        return CocoDataset(args.coco_path, args.set_name if train else args.val_set_name)
+    if t == "kitti":
+        return KittiDataset(args.kitti_path, args.subset if train else args.val_subset)
+    if t == "open_images":
+        flt = args.labels_filter.split(",") if args.labels_filter else None
+        return OpenImagesDataset(args.main_dir, args.subset if train else args.val_subset,
+                                 labels_filter=flt)
+    raise ValueError(f"unsupported dataset type {t!r}")
 
 
 def anchor_params_from_args(args) -> Optional[AnchorParameters]:

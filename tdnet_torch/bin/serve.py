@@ -11,10 +11,12 @@ Endpoints:
     GET  /healthz    -> {"status": "ok", "model": ..., "device": ...}
     GET  /stats      -> request and batch counters, latency quantiles, the
                         fused-stem state and the host/dispatch split
-    POST /v1/detect  -> body: a PNG (decoded by ``data/png.py``) or a raw
-                        ``.npy`` (H, W, 3) BGR array (Content-Type:
-                        application/x-npy); anything else gets 400 (JPEG:
-                        send PNG or .npy). Optional ?threshold=0.5.
+    POST /v1/detect  -> body: a PNG, JPEG or BMP (decoded as
+                        ``cv2.imdecode(..., IMREAD_COLOR)`` does, a JPEG
+                        turned by its EXIF orientation) or a raw ``.npy``
+                        (H, W, 3) BGR array (Content-Type:
+                        application/x-npy); a body that does not decode
+                        gets 400. Optional ?threshold=0.5.
                         Returns {"detections": [{"box": [x1, y1, x2, y2],
                         "score": s, "label": i, "name": ...}, ...],
                         "time_ms": t, "image_hw": [h, w]} in image
@@ -40,7 +42,7 @@ from urllib.parse import parse_qs, urlsplit
 import numpy as np
 import torch
 
-from tdnet_torch.data import png
+from tdnet_torch.data.image import decode_image
 
 __all__ = ["MicroBatcher", "build_server", "parse_args", "main"]
 
@@ -221,11 +223,12 @@ def _decode_body(raw: bytes, ctype: str, keep_u8: bool) -> np.ndarray:
         image = np.load(io.BytesIO(raw), allow_pickle=False)
         if image.ndim != 3 or image.shape[2] != 3:
             raise ValueError(f"npy image must be (H, W, 3) BGR, got {image.shape}")
-    elif raw.startswith(png.SIGNATURE):
-        # the reference decodes bodies with cv2.imdecode(IMREAD_COLOR)
-        image = png.decode_png(raw, sixteen_bit="cv2")[:, :, ::-1]
     else:
-        raise ValueError(f"could not decode image body: the port reads {png.READS}")
+        # the reference decodes bodies with cv2.imdecode(IMREAD_COLOR)
+        try:
+            image = decode_image(raw, route="cv2")[:, :, ::-1]
+        except ValueError as e:
+            raise ValueError(f"could not decode image body: {e}") from None
     if keep_u8 and image.dtype == np.uint8:
         return np.ascontiguousarray(image)
     return np.asarray(image, np.float32)

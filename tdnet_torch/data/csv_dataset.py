@@ -7,8 +7,9 @@
   classes.csv:      class_name,id   (0-based, dense)
 
 Parse errors name the line. Images load through
-:func:`tdnet_torch.data.image.read_image_bgr` (PNG or ``.npy``), and
-``image_aspect_ratio`` reads the PNG header instead of decoding the page.
+:func:`tdnet_torch.data.image.read_image_bgr` (PNG, JPEG, BMP or ``.npy``),
+and ``image_aspect_ratio`` reads the image header instead of decoding the
+page.
 """
 
 from __future__ import annotations

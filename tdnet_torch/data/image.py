@@ -1,9 +1,11 @@
 """Host-side image reading and preprocessing in numpy, the counterpart of
 ``tdnet/data/image.py``.
 
-:func:`read_image_bgr` decodes PNG with ``data/png.py`` (zlib and numpy;
-the reference decodes with PIL) and reads ``.npy`` arrays; other formats,
-JPEG among them, raise.
+:func:`read_image_bgr` decodes PNG, JPEG and BMP pages with the port's own
+decoders (``data/png.py``, ``data/jpeg.py``, ``data/bmp.py``: zlib and
+numpy), byte for byte as the reference's PIL ``convert("RGB")`` does, and
+reads ``.npy`` arrays. The format is sniffed from the content, as PIL does,
+not taken from the file's extension.
 
 The GPU machine has neither cv2 nor PIL, so :func:`resize_image` is a numpy
 bilinear resize that reproduces cv2's ``INTER_LINEAR`` (the reference's
@@ -22,10 +24,12 @@ from typing import Tuple
 
 import numpy as np
 
-from tdnet_torch.data import png
+from tdnet_torch.data import bmp, jpeg, png
 
 __all__ = [
     "CAFFE_MEAN_BGR",
+    "READS",
+    "decode_image",
     "read_image_bgr",
     "write_image_bgr",
     "image_size",
@@ -38,10 +42,29 @@ __all__ = [
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], dtype=np.float32)
 
 
+READS = f"{png.READS}; {jpeg.READS}; {bmp.READS}"
+
+
+def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
+    """PNG, JPEG or BMP bytes, told apart by their first bytes -> (H, W, 3)
+    uint8 RGB by the rule of ``route``: ``"pil"`` (files: PIL's
+    ``convert("RGB")``) or ``"cv2"`` (serve bodies: ``cv2.imdecode(...,
+    IMREAD_COLOR)``, which turns a JPEG by its EXIF orientation)."""
+    if data.startswith(png.SIGNATURE):
+        return png.decode_png(data, sixteen_bit=route)
+    if data.startswith(jpeg.SIGNATURE):
+        return jpeg.decode_jpeg(data, route=route)
+    if data.startswith(bmp.SIGNATURE):
+        return bmp.decode_bmp(data, route=route)
+    if data.startswith((b"II*\x00", b"MM\x00*")):
+        raise ValueError(f"TIFF pages are not read yet (ROADMAP A14.10); the port reads {READS}")
+    raise ValueError(f"unsupported image format; the port reads {READS}")
+
+
 def read_image_bgr(path) -> np.ndarray:
-    """An image file -> (H, W, 3) float32 BGR: PNG (decoded as PIL's
-    ``convert("RGB")``, then the channels flipped) or a ``.npy`` array that
-    is already (H, W, 3) BGR."""
+    """An image file -> (H, W, 3) float32 BGR: PNG, JPEG or BMP (decoded as
+    PIL's ``convert("RGB")``, then the channels flipped) or a ``.npy`` array
+    that is already (H, W, 3) BGR."""
     path = os.fspath(path)
     if path.endswith(".npy"):
         image = np.load(path, allow_pickle=False)
@@ -51,9 +74,11 @@ def read_image_bgr(path) -> np.ndarray:
         return np.asarray(image, np.float32)
     with open(path, "rb") as f:
         data = f.read()
-    if not data.startswith(png.SIGNATURE):
-        raise ValueError(f"{path}: unsupported image format; the port reads {png.READS}")
-    return png.decode_png(data, sixteen_bit="pil")[:, :, ::-1].astype(np.float32)
+    try:
+        rgb = decode_image(data, route="pil")
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    return rgb[:, :, ::-1].astype(np.float32)
 
 
 def write_image_bgr(path, image_bgr: np.ndarray) -> None:
@@ -63,13 +88,22 @@ def write_image_bgr(path, image_bgr: np.ndarray) -> None:
 
 
 def image_size(path):
-    """(width, height) of a PNG (from its header) or a ``.npy`` image."""
+    """(width, height) of a PNG, JPEG or BMP (from its headers, without
+    decoding pixels; a JPEG's EXIF orientation is not applied, as PIL's
+    ``.size``) or of a ``.npy`` image."""
     path = os.fspath(path)
     if path.endswith(".npy"):
         h, w = np.load(path, mmap_mode="r", allow_pickle=False).shape[:2]
         return w, h
     with open(path, "rb") as f:
-        return png.png_size(f.read(24))
+        head = f.read(64)
+        if head.startswith(png.SIGNATURE):
+            return png.png_size(head)
+        if head.startswith(bmp.SIGNATURE):
+            return bmp.bmp_size(head)
+        if head.startswith(jpeg.SIGNATURE):
+            return jpeg.jpeg_size(head + f.read())
+    raise ValueError(f"{path}: unsupported image format; the port reads {READS}")
 
 
 def preprocess_image(x: np.ndarray, mode: str = "caffe") -> np.ndarray:

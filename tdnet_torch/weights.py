@@ -92,8 +92,8 @@ def random_variables(num_classes: int, backbone: str = "resnet50",
                      feature_size: int = 256,
                      prior_probability: float = 0.01) -> dict:
     """A flax-shaped ``{params, batch_stats}`` numpy tree with flax's init
-    distributions (the counterpart of ``RetinaNet.init``; the values differ
-    from jax.random's): lecun_normal conv and dense kernels in the backbone
+    distributions (the counterpart of ``RetinaNet.init``; the values are
+    not jax.random's): lecun_normal conv and dense kernels in the backbone
     and FPN, Normal(0.01) subnet kernels, zero biases, the classification
     head bias at -log((1 - p) / p), BatchNorm at identity."""
     from tdnet_torch.models.retinanet import RetinaNet

@@ -164,12 +164,13 @@ def test_png_every_filter_type_and_encoder_round_trip():
 
 
 def test_unsupported_images_raise(tmp_path):
-    """JPEG raises, naming what the port reads; a .npy page is read as BGR
-    float32; a page written by write_image_bgr reads back."""
+    """A format the port does not read (GIF) raises, naming what it reads;
+    a .npy page is read as BGR float32; a page written by write_image_bgr
+    reads back."""
     rng = np.random.RandomState(2)
     a = rng.randint(0, 256, (16, 16, 3)).astype(np.uint8)
     with pytest.raises(ValueError, match="PNG"):
-        read_image_bgr(_save_pil(tmp_path, "a.jpg", a))
+        read_image_bgr(_save_pil(tmp_path, "a.gif", a))
     np.save(tmp_path / "page.npy", a)
     got = read_image_bgr(tmp_path / "page.npy")
     assert got.dtype == np.float32 and np.array_equal(got, a)
@@ -486,9 +487,9 @@ def test_predict_and_evaluate_clis_on_cpu(tiny_bundle, tmp_path, capsys):
 
 
 def test_cli_options_the_port_does_not_run_yet(tiny_bundle, tmp_path, capsys):
-    """--distributed and other datasets raise naming their ROADMAP items; a
-    keras .h5 model (ported) evaluates as the .tdn of the same weights
-    does."""
+    """--distributed raises naming its ROADMAP item; the other datasets are
+    ported (a missing COCO root raises as in the reference); a keras .h5
+    model (ported) evaluates as the .tdn of the same weights does."""
     from tdnet_torch.bin import evaluate, predict
     from tdnet_torch.compat.keras_import import export_random_keras_weights
     from tdnet_torch.models.io import load_model
@@ -500,7 +501,7 @@ def test_cli_options_the_port_does_not_run_yet(tiny_bundle, tmp_path, capsys):
         evaluate.main([*cpu, "--distributed", "x:1,2,0", *csv_args, model])
     with pytest.raises(FileNotFoundError):  # .h5 is ported: as h5py, a missing file
         evaluate.main([*cpu, *csv_args, "weights.h5"])
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(FileNotFoundError, match="instances_train2017.json"):
         evaluate.main([*cpu, "coco", "/nowhere", model])
     for main, argv in ((predict.main, [model, "p.png"]), (evaluate.main, [*csv_args, model])):
         with pytest.raises(SystemExit):  # --no-pallas on CUDA: argparse error

@@ -1,0 +1,559 @@
+"""tdnet_torch.data.jpeg and .bmp against the reference's two decoders:
+each case byte-equal to PIL's ``Image.open(...).convert("RGB")`` on the
+``pil`` route (files) and to ``cv2.imdecode(..., IMREAD_COLOR)[:, :, ::-1]``
+on the ``cv2`` route (serve bodies). PIL and cv2 are oracles here only;
+the port imports neither (the last test proves it in a subprocess)."""
+
+import io
+import struct
+import subprocess
+import sys
+from pathlib import Path
+
+import cv2
+import numpy as np
+import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from PIL import Image
+
+from tdnet_torch.data import bmp, jpeg
+from tdnet_torch.data.image import image_size, read_image_bgr
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# (name, PIL subsampling or a cv2 sampling flag); "gray" is one component
+SAMPLINGS = [("444", 0), ("422", 1), ("420", 2),
+             ("440", cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440), ("gray", None)]
+# 1x1 to 70x90, none a multiple of the 16x16 MCU but 16x16 itself
+SIZES = [(1, 1), (2, 3), (3, 2), (7, 9), (9, 17), (16, 16), (17, 33), (33, 17), (67, 93)]
+QUALITIES = [5, 50, 90, 100]
+
+
+def _image(shape, seed, channels=3):
+    """Random blurred pixels: noise alone is all high frequency."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, shape + (channels,), dtype=np.uint8)
+    if min(shape) >= 5:
+        img = cv2.GaussianBlur(img, (5, 5), 0).reshape(img.shape)
+    return img
+
+
+def _pil_jpeg(img, **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(img[..., 0] if img.shape[2] == 1 else img).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def _cv2_jpeg(img, *params) -> bytes:
+    ok, enc = cv2.imencode(".jpg", np.ascontiguousarray(img[..., ::-1]), list(params))
+    assert ok
+    return enc.tobytes()
+
+
+def _encode(img, sampling, quality, **kw) -> bytes:
+    if sampling is None:
+        return _pil_jpeg(img[..., :1], quality=quality, **kw)
+    if sampling > 2:
+        return _cv2_jpeg(img, cv2.IMWRITE_JPEG_QUALITY, quality,
+                         cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling)
+    return _pil_jpeg(img, quality=quality, subsampling=sampling, **kw)
+
+
+def _pil(data: bytes) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def _cv2(data: bytes) -> np.ndarray:
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    assert bgr is not None
+    return bgr[:, :, ::-1]
+
+
+def _assert_both_routes(data: bytes, decode=jpeg.decode_jpeg):
+    for route, oracle in (("pil", _pil), ("cv2", _cv2)):
+        got, want = decode(data, route=route), oracle(data)
+        assert got.dtype == np.uint8 and got.shape == want.shape, (route, got.shape, want.shape)
+        if not np.array_equal(got, want):
+            diff = np.argwhere(got != want)
+            pytest.fail(f"{route}: {len(diff)} samples differ, first at {diff[0].tolist()}")
+
+
+@pytest.mark.parametrize("shape", SIZES, ids=[f"{h}x{w}" for h, w in SIZES])
+@pytest.mark.parametrize("name,sampling", SAMPLINGS, ids=[s[0] for s in SAMPLINGS])
+def test_jpeg_sampling_size_quality_equal_both_routes(name, sampling, shape):
+    """Every sampling at sizes off the MCU grid (the upsamplers' edge rules
+    and the dummy blocks) and qualities 5 to 100 (the IDCT's range limit)."""
+    for q in QUALITIES:
+        _assert_both_routes(_encode(_image(shape, q), sampling, q))
+
+
+@pytest.mark.parametrize("case", ["dqt16", "optimize", "rst_blocks", "rst_rows",
+                                  "cv2_rst", "gray_rst", "annex_k"])
+def test_jpeg_tables_and_restart_intervals(case):
+    """16-bit quantisation tables (an SOF1 frame), optimised Huffman tables,
+    restart intervals from both encoders, and a file without DHT (libjpeg's
+    Annex K tables, as Motion JPEG sends it)."""
+    img = _image((45, 71), 3)
+    if case == "dqt16":
+        data = _pil_jpeg(img, qtables=[list(range(200, 264)), [300 + 3 * i for i in range(64)]])
+        assert data[data.index(b"\xff\xdb") + 4] >> 4 == 1 and b"\xff\xc1" in data
+    elif case == "optimize":
+        data = _pil_jpeg(img, quality=80, optimize=True, subsampling=2)
+    elif case == "rst_blocks":
+        data = _pil_jpeg(img, quality=70, restart_marker_blocks=1, subsampling=2)
+    elif case == "rst_rows":
+        data = _pil_jpeg(img, quality=70, restart_marker_rows=1, subsampling=0)
+    elif case == "cv2_rst":
+        data = _cv2_jpeg(img, cv2.IMWRITE_JPEG_RST_INTERVAL, 3,
+                         cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440)
+    elif case == "gray_rst":
+        data = _pil_jpeg(img[..., :1], quality=60, restart_marker_blocks=2)
+    else:
+        data = _strip(_pil_jpeg(img, quality=85), 0xC4)
+        assert b"\xff\xc4" not in data
+    if case.startswith(("rst", "cv2", "gray")):
+        assert b"\xff\xdd" in data and b"\xff\xd0" in data
+    _assert_both_routes(data)
+
+
+def _segments(data: bytes):
+    """(marker, start, end) of each marker segment before the first scan."""
+    pos = 2
+    while data[pos] == 0xFF and data[pos + 1] != 0xDA:
+        marker = data[pos + 1]
+        (n,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        yield marker, pos, pos + 2 + n
+        pos += 2 + n
+
+
+def _strip(data: bytes, marker: int) -> bytes:
+    for m, a, b in _segments(data):
+        if m == marker:
+            return _strip(data[:a] + data[b:], marker)
+    return data
+
+
+@pytest.mark.parametrize("case", ["adobe_rgb", "rgb_ids", "adobe_ycc", "jfif_rgb_ids"])
+def test_jpeg_colour_space_guess(case):
+    """jdapimin.c's guess: an Adobe marker's transform 0 means RGB, 1
+    YCbCr; without JFIF or Adobe, component ids 'R', 'G', 'B' mean RGB;
+    JFIF means YCbCr whatever the ids."""
+    img = _image((23, 37), 5)
+    data = _pil_jpeg(img, keep_rgb=True, quality=90)
+    at = data.index(b"Adobe")
+    assert data[at + 11] == 0 and b"JFIF" not in data
+    if case == "rgb_ids":
+        data = _strip(data, 0xEE)
+    elif case == "adobe_ycc":
+        data = data[:at + 11] + b"\x01" + data[at + 12:]
+    elif case == "jfif_rgb_ids":
+        jfif = b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+        data = data[:2] + jfif + _strip(data, 0xEE)[2:]
+    _assert_both_routes(data)
+
+
+def _exif(orientation: int, big_endian: bool) -> bytes:
+    end = ">" if big_endian else "<"
+    ifd = struct.pack(end + "H", 2) + struct.pack(end + "HHI", 0x010F, 2, 4) + b"tdn\x00" \
+        + struct.pack(end + "HHIHH", 0x0112, 3, 1, orientation, 0) + struct.pack(end + "I", 0)
+    return b"Exif\x00\x00" + (b"MM" if big_endian else b"II") + struct.pack(end + "HI", 42, 8) + ifd
+
+
+@pytest.mark.parametrize("big_endian", [False, True], ids=["II", "MM"])
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_jpeg_exif_orientation(orientation, big_endian):
+    """The file route ignores EXIF orientation; the body route turns the
+    page as cv2 does, for orientations 1-8 and both TIFF byte orders."""
+    img = _image((19, 42), orientation)
+    data = _pil_jpeg(img, quality=90, subsampling=2, exif=_exif(orientation, big_endian))
+    assert jpeg.exif_orientation(data) == orientation
+    _assert_both_routes(data)
+    assert jpeg.jpeg_size(data) == Image.open(io.BytesIO(data)).size == (42, 19)
+
+
+@settings(max_examples=25, deadline=None)
+@given(h=st.integers(1, 64), w=st.integers(1, 64), sampling=st.sampled_from(SAMPLINGS),
+       quality=st.integers(1, 100), seed=st.integers(0, 2 ** 16))
+def test_jpeg_random_images_equal_both_routes(h, w, sampling, quality, seed):
+    data = _encode(_image((h, w), seed), sampling[1], quality)
+    _assert_both_routes(data)
+    assert jpeg.jpeg_size(data) == Image.open(io.BytesIO(data)).size
+
+
+# --- a sequential encoder of the test's own: scans the two encoders above
+# never write (non-interleaved, odd sampling factors), from coefficients
+
+
+def _codes(counts, symbols):
+    codes, code, k = {}, 0, 0
+    for bits in range(1, 17):
+        for _ in range(counts[bits - 1]):
+            codes[symbols[k]] = (code, bits)
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes
+
+
+class _Bits:
+    def __init__(self):
+        self.value, self.n = 0, 0
+
+    def put(self, code, bits):
+        self.value, self.n = (self.value << bits) | code, self.n + bits
+
+    def flush(self) -> bytes:
+        pad = -self.n % 8
+        self.put((1 << pad) - 1, pad)
+        out = self.value.to_bytes(self.n // 8, "big").replace(b"\xff", b"\xff\x00")
+        self.value, self.n = 0, 0
+        return out
+
+
+def _put_block(bits, zz, pred, dc, ac):
+    def size_bits(v):
+        s = abs(v).bit_length()
+        return s, (v if v >= 0 else v + (1 << s) - 1)
+
+    s, extra = size_bits(int(zz[0]) - pred)
+    bits.put(*dc[s])
+    bits.put(extra, s)
+    run = 0
+    for k in range(1, 64):
+        v = int(zz[k])
+        if v == 0:
+            run += 1
+            continue
+        while run > 15:
+            bits.put(*ac[0xF0])
+            run -= 16
+        s, extra = size_bits(v)
+        bits.put(*ac[(run << 4) | s])
+        bits.put(extra, s)
+        run = 0
+    if run:
+        bits.put(*ac[0x00])
+    return int(zz[0])
+
+
+# zigzag positions of the first row's AC terms (natural indices 1..7): a
+# block with only these has no AC terms in its columns
+_ROW0 = [1, 5, 6, 14, 15, 27, 28]
+
+
+def _sequential_jpeg(rng, h, w, factors, interleaved, restart, extreme=False):
+    """A JFIF baseline file of three components with the given (h, v)
+    sampling factors, random quantised coefficients (DC near the middle, a
+    few AC, some past a run of 16 and some at position 63), the Annex K
+    tables in DHT, one interleaved scan or one scan a component, and a
+    restart marker every ``restart`` MCUs (0: none). ``extreme``: the
+    largest coefficients the tables code and quantisers of 200-255, half
+    the blocks with AC terms in their first row only, so that the inverse
+    DCT's 16-bit products, sums and saturations all come into play."""
+    from tdnet_torch.data.jpeg import _STD_TABLES
+
+    dc_max, ac_max, q_lo = (1000, 1024, 200) if extreme else (60, 40, 1)
+    max_h, max_v = max(f[0] for f in factors), max(f[1] for f in factors)
+    mcus_x, mcus_y = -(-w // (8 * max_h)), -(-h // (8 * max_v))
+    comps = []
+    for ci, (fh, fv) in enumerate(factors):
+        rows, cols = mcus_y * fv, mcus_x * fh
+        zz = np.zeros((rows, cols, 64), np.int64)
+        zz[..., 0] = rng.integers(-dc_max, dc_max, (rows, cols))
+        for i in range(rows * cols * 2):
+            k = rng.choice(_ROW0) if extreme and i % 2 else rng.integers(1, 64)
+            zz[rng.integers(rows), rng.integers(cols), k] = \
+                rng.choice([-1, 1]) * rng.integers(1, ac_max)
+        zz[0, 0, 1:] = 0
+        zz[0, 0, 20] = 3    # a run of 19 zeros: one ZRL
+        zz[-1, -1, 63] = -2  # no EOB after the last coefficient
+        comps.append(dict(id=ci + 1, fh=fh, fv=fv, zz=zz, tq=min(ci, 1), tables=min(ci, 1),
+                          wb=-(-w * fh // (8 * max_h)), hb=-(-h * fv // (8 * max_v))))
+    quant = [rng.integers(q_lo, 40 if q_lo == 1 else 256, 64),
+             rng.integers(q_lo, 60 if q_lo == 1 else 256, 64)]
+    out = [b"\xff\xd8", b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"]
+    for t, q in enumerate(quant):
+        out.append(b"\xff\xdb\x00\x43" + bytes([t]) + bytes(q.astype(np.uint8)))
+    out.append(b"\xff\xc0" + struct.pack(">HBHHB", 17, 8, h, w, 3) + b"".join(
+        bytes([c["id"], (c["fh"] << 4) | c["fv"], c["tq"]]) for c in comps))
+    for (tc, th), (counts, symbols) in _STD_TABLES.items():
+        out.append(b"\xff\xc4" + struct.pack(">H", 19 + len(symbols)) + bytes([(tc << 4) | th])
+                   + counts + symbols)
+    if restart:
+        out.append(b"\xff\xdd\x00\x04" + struct.pack(">H", restart))
+    codes = {key: _codes(*val) for key, val in _STD_TABLES.items()}
+    scans = [comps] if interleaved else [[c] for c in comps]
+    for scan in scans:
+        out.append(b"\xff\xda" + struct.pack(">HB", 6 + 2 * len(scan), len(scan)) + b"".join(
+            bytes([c["id"], (c["tables"] << 4) | c["tables"]]) for c in scan) + b"\x00\x3f\x00")
+        if len(scan) > 1:
+            mcus = [[(c, my * c["fv"] + dy, mx * c["fh"] + dx) for c in scan
+                     for dy in range(c["fv"]) for dx in range(c["fh"])]
+                    for my in range(mcus_y) for mx in range(mcus_x)]
+        else:
+            c = scan[0]
+            mcus = [[(c, by, bx)] for by in range(c["hb"]) for bx in range(c["wb"])]
+        bits, preds, n_rst = _Bits(), {}, 0
+        for i, mcu in enumerate(mcus):
+            if restart and i and i % restart == 0:
+                out.append(bits.flush() + bytes([0xFF, 0xD0 + n_rst % 8]))
+                preds, n_rst = {}, n_rst + 1
+            for c, by, bx in mcu:
+                t = c["tables"]
+                preds[c["id"]] = _put_block(bits, c["zz"][by, bx], preds.get(c["id"], 0),
+                                            codes[(0, t)], codes[(1, t)])
+        out.append(bits.flush())
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+SEQUENTIAL = [  # (h, w, sampling factors, interleaved, restart interval, extreme)
+    (37, 45, ((2, 2), (1, 1), (1, 1)), False, 0, False),
+    (37, 45, ((2, 2), (1, 1), (1, 1)), False, 3, False),
+    (50, 27, ((1, 1), (2, 2), (1, 2)), True, 0, False),
+    (19, 61, ((2, 1), (1, 2), (2, 2)), True, 2, False),
+    (21, 33, ((1, 2), (2, 1), (1, 1)), False, 0, False),
+    (5, 3, ((2, 2), (1, 1), (2, 1)), True, 1, False),
+    (37, 45, ((2, 2), (1, 1), (1, 1)), True, 0, True),
+    (29, 18, ((1, 1), (1, 2), (2, 1)), False, 2, True),
+]
+
+
+@pytest.mark.parametrize("case", range(len(SEQUENTIAL)))
+def test_jpeg_non_interleaved_scans_and_odd_sampling(case):
+    """Scans and sampling factors the encoders above never write, and
+    coefficients far outside a real image's (libjpeg-turbo's SIMD inverse
+    DCT, which both references run, wraps and saturates in 16 bits)."""
+    h, w, factors, interleaved, restart, extreme = SEQUENTIAL[case]
+    data = _sequential_jpeg(np.random.default_rng(case), h, w, factors, interleaved,
+                            restart, extreme)
+    _assert_both_routes(data)
+
+
+@pytest.mark.parametrize("restart", [0, 4], ids=["no_rst", "rst4"])
+@pytest.mark.parametrize("cut", [0.3, 0.8])
+def test_jpeg_scan_that_runs_out_of_data(cut, restart):
+    """200 bytes of entropy-coded data dropped, the EOI kept: libjpeg feeds
+    zero bits to the MCU in progress and leaves the rest of the interval
+    gray, and both references return that page."""
+    img = _image((67, 93), 1)
+    data = _pil_jpeg(img, quality=90, subsampling=2, restart_marker_blocks=restart)
+    sos = data.index(b"\xff\xda")
+    at = sos + 12 + int((len(data) - sos - 14) * cut)
+    _assert_both_routes(data[:at] + data[at + 200:])
+
+
+def _with_marker(data: bytes, old: bytes, new: bytes) -> bytes:
+    assert old in data
+    return data.replace(old, new, 1)
+
+
+def test_jpeg_cases_that_raise():
+    """What the port does not read raises on both routes, each message
+    naming the case (progressive its ROADMAP item); both references fail
+    on a truncated file too (PIL raises, cv2 returns None)."""
+    img = _image((24, 40), 9)
+    base = _pil_jpeg(img, quality=80)
+    cases = {
+        "A14.7.1": _pil_jpeg(img, progressive=True),
+        "arithmetic": _with_marker(base, b"\xff\xc0", b"\xff\xc9"),
+        "12-bit": base.replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x11\x0c", 1),
+        "DNL": base.replace(b"\xff\xc0\x00\x11\x08\x00\x18", b"\xff\xc0\x00\x11\x08\x00\x00", 1),
+        "sampling factors 4x1": _cv2_jpeg(img, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                          cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
+        "truncated": base[:len(base) // 2],
+        "EOI": base[:-2],
+    }
+    buf = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(buf, "JPEG")
+    cases["CMYK"] = buf.getvalue()
+    for match, data in cases.items():
+        assert data != base
+        for route in jpeg.ROUTES:
+            with pytest.raises(ValueError, match=match):
+                jpeg.decode_jpeg(data, route=route)
+    for name in ("A14.7.1", "CMYK", "sampling factors 4x1"):  # headers still read
+        assert jpeg.jpeg_size(cases[name]) == Image.open(io.BytesIO(cases[name])).size
+    for data in (cases["truncated"], cases["EOI"]):
+        with pytest.raises(OSError):
+            _pil(data)
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match="route"):
+        jpeg.decode_jpeg(base, route="tf")
+
+
+def test_full_page_fixtures_equal_their_digests():
+    """tests/golden/jpeg (tools/make_jpeg_pages.py): the four full-size
+    table pages decode by both routes to the SHA-256 the references gave,
+    and their sizes read from the headers."""
+    import hashlib
+    import json
+
+    golden = ROOT / "tests" / "golden" / "jpeg"
+    digests = json.loads((golden / "digests.json").read_text())
+    assert len(digests) == 4
+    for name, info in digests.items():
+        data = (golden / name).read_bytes()
+        rgb = jpeg.decode_jpeg(data, route="pil")
+        bgr = np.ascontiguousarray(jpeg.decode_jpeg(data, route="cv2")[:, :, ::-1])
+        assert hashlib.sha256(rgb.tobytes()).hexdigest() == info["pil_rgb_sha256"], name
+        assert hashlib.sha256(bgr.tobytes()).hexdigest() == info["cv2_bgr_sha256"], name
+        assert list(bgr.shape) == info["cv2_shape"]
+        assert list(jpeg.jpeg_size(data)) == list(image_size(golden / name)) == info["size"]
+
+
+# --- BMP
+
+
+def _bmp(pixels, bits, *, palette=None, compression=0, masks=None, top_down=False,
+         header=40) -> bytes:
+    """A BMP of the test's own: pixels are (H, W) indices or 16-bit words,
+    or (H, W, 3|4) BGR(A) bytes."""
+    h, w = pixels.shape[:2]
+    if bits < 8:
+        per = 8 // bits
+        idx = np.zeros((h, -(-w // per) * per), np.uint8)
+        idx[:, :w] = pixels
+        idx = idx.reshape(h, -1, per)
+        raw = np.zeros(idx.shape[:2], np.uint8)
+        for j in range(per):
+            raw |= idx[:, :, j] << (8 - bits * (j + 1))
+    elif bits == 16:
+        raw = pixels.astype("<u2").view(np.uint8).reshape(h, -1)
+    else:
+        raw = pixels.astype(np.uint8).reshape(h, -1)
+    stride = ((w * bits + 31) >> 5) * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :raw.shape[1]] = raw
+    body = (rows if top_down else rows[::-1]).tobytes()
+    if header == 12:
+        info = struct.pack("<IhhHH", 12, w, h, 1, bits)
+        pal = b"" if palette is None else bytes(palette[:, ::-1].astype(np.uint8).reshape(-1))
+    else:
+        n = 0 if palette is None else len(palette)
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits,
+                           compression, len(body), 2835, 2835, n, 0)
+        info += struct.pack("<III", *masks) if masks and header == 40 else b""
+        if header > 40:
+            extra = struct.pack("<IIII", *(masks or (0, 0, 0)), 0)
+            info += (extra + bytes(header - 56))[:header - 40]
+        pal = b"" if palette is None else b"".join(
+            bytes([b, g, r, 0]) for r, g, b in palette.astype(np.uint8))
+    offset = 14 + len(info) + len(pal)
+    return b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset) + info + pal + body
+
+
+def _pil_bmp(img, mode) -> bytes:
+    buf = io.BytesIO()
+    src = Image.fromarray(img)
+    src = src.convert("RGBA") if mode == "RGBA" else src.convert(mode)
+    src.save(buf, "BMP")
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBA", "P", "L", "1"])
+@pytest.mark.parametrize("shape", [(1, 1), (5, 3), (19, 37)], ids=["1x1", "5x3", "19x37"])
+def test_bmp_pil_modes_equal_both_routes(mode, shape):
+    """The BMPs PIL writes: 24-bit, 32-bit BGRA, 8-bit palette and gray,
+    1-bit."""
+    data = _pil_bmp(_image(shape, len(mode)), mode)
+    _assert_both_routes(data, bmp.decode_bmp)
+    assert bmp.bmp_size(data) == Image.open(io.BytesIO(data)).size
+
+
+BMP_CASES = {
+    "4bit": dict(bits=4, palette=16),
+    "1bit_colours": dict(bits=1, palette=2),
+    "8bit_short_palette": dict(bits=8, palette=200),
+    "24bit_top_down": dict(bits=24, top_down=True),
+    "24bit_v5_header": dict(bits=24, header=124),
+    "24bit_os2_core": dict(bits=24, header=12),
+    "8bit_os2_core": dict(bits=8, palette=256, header=12),
+    "32bit_bitfields": dict(bits=32, compression=3, masks=(0xFF0000, 0xFF00, 0xFF)),
+    "16bit_555": dict(bits=16),
+    "16bit_bitfields_565": dict(bits=16, compression=3, masks=(0xF800, 0x07E0, 0x001F)),
+    "16bit_bitfields_555_top_down": dict(bits=16, compression=3,
+                                         masks=(0x7C00, 0x03E0, 0x001F), top_down=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BMP_CASES))
+def test_bmp_layouts_equal_both_routes(case):
+    """Layouts PIL does not write: 4-bit, short palettes, top-down rows,
+    the V5 and OS/2 headers, BI_BITFIELDS, and 16 bits, where the routes
+    part (PIL scales 5 bits by 255 / 31, cv2 shifts)."""
+    kw = dict(BMP_CASES[case])
+    rng = np.random.default_rng(len(case))
+    h, w, bits = 13, 27, kw["bits"]
+    n = kw.pop("palette", None)
+    if n:
+        kw["palette"] = rng.integers(0, 256, (n, 3))
+        px = rng.integers(0, n, (h, w))
+    elif bits == 16:
+        px = rng.integers(0, 1 << 16, (h, w))
+    else:
+        px = rng.integers(0, 256, (h, w, bits // 8))
+    data = _bmp(px, **kw)
+    _assert_both_routes(data, bmp.decode_bmp)
+    if bits == 16:
+        assert not np.array_equal(bmp.decode_bmp(data, "pil"), bmp.decode_bmp(data, "cv2"))
+
+
+def test_bmp_cases_that_raise():
+    px = np.zeros((4, 4), np.int64)
+    for match, data in (("RLE", _bmp(px, 8, palette=np.zeros((256, 3)), compression=1)),
+                        ("RLE", _bmp(px, 4, palette=np.zeros((16, 3)), compression=2)),
+                        ("bitfields", _bmp(px, 16, compression=3, masks=(0xF00, 0xF0, 0xF))),
+                        ("truncated", _bmp(px[..., None].repeat(3, 2), 24)[:-10])):
+        for route in bmp.ROUTES:
+            with pytest.raises(ValueError, match=match):
+                bmp.decode_bmp(data, route=route)
+
+
+def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
+    """read_image_bgr decodes by content whatever the extension (a PNG
+    named .jpg, a JPEG named .png), as PIL does; image_size reads each
+    format's header as PIL's .size; other formats raise."""
+    img = _image((21, 34), 11)
+    files = {"png.jpg": None, "jpeg.png": _pil_jpeg(img, quality=85),
+             "bmp.dat": _pil_bmp(img, "RGB")}
+    Image.fromarray(img).save(tmp_path / "png.jpg", format="PNG")
+    for name, data in files.items():
+        if data is not None:
+            (tmp_path / name).write_bytes(data)
+        want = np.asarray(Image.open(tmp_path / name).convert("RGB"))[:, :, ::-1]
+        got = read_image_bgr(tmp_path / name)
+        assert got.dtype == np.float32 and np.array_equal(got, want), name
+        assert image_size(tmp_path / name) == Image.open(tmp_path / name).size == (34, 21)
+    Image.fromarray(img).save(tmp_path / "page.gif")
+    Image.fromarray(img).save(tmp_path / "page.tif")
+    for fn in (read_image_bgr, image_size):
+        with pytest.raises(ValueError, match="JPEG"):
+            fn(tmp_path / "page.gif")
+    with pytest.raises(ValueError, match="A14.10"):
+        read_image_bgr(tmp_path / "page.tif")
+
+
+def test_no_fallback_decoder(tmp_path):
+    """With PIL, cv2, jax and tdnet poisoned in sys.modules, read_image_bgr
+    still decodes a JPEG and a BMP, to the pixels PIL gives here."""
+    img = _image((30, 41), 12)
+    (tmp_path / "a.jpg").write_bytes(_pil_jpeg(img, quality=90, subsampling=2))
+    (tmp_path / "b.bmp").write_bytes(_pil_bmp(img, "RGB"))
+    for name in ("a.jpg", "b.bmp"):
+        np.save(tmp_path / (name + ".npy"), _pil((tmp_path / name).read_bytes())[:, :, ::-1])
+    code = f"""
+import sys
+for name in ("PIL", "PIL.Image", "cv2", "jax", "jaxlib", "tdnet"):
+    sys.modules[name] = None
+import numpy as np
+from tdnet_torch.data.image import read_image_bgr
+for name in ("a.jpg", "b.bmp"):
+    got = read_image_bgr({str(tmp_path)!r} + "/" + name)
+    want = np.load({str(tmp_path)!r} + "/" + name + ".npy")
+    assert np.array_equal(got, want), name
+print("ok")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

@@ -1,6 +1,6 @@
 """tdnet_torch.bin.serve: the cases of tests/bin/test_serve.py on the port
-(``device="cpu"``), PNG and refused bodies, and served detections against
-tdnet's server on the same bridged weights."""
+(``device="cpu"``), PNG, JPEG, BMP and refused bodies, and served
+detections against tdnet's server on the same bridged weights."""
 
 import io
 import json
@@ -126,6 +126,42 @@ def test_png_body_equals_npy_body(served):
     _assert_response_matches(via_png, predictor(page.astype(np.float32)))
 
 
+def _exif6() -> bytes:
+    """An EXIF block whose IFD0 holds orientation 6 (turn 90 degrees
+    clockwise to display)."""
+    import struct
+
+    ifd = struct.pack("<HHHIHHI", 1, 0x0112, 3, 1, 6, 0, 0)
+    return b"Exif\x00\x00II" + struct.pack("<HI", 42, 8) + ifd
+
+
+@pytest.mark.parametrize("kind", ["jpeg", "bmp", "jpeg_exif6"])
+def test_jpeg_and_bmp_bodies(served, kind):
+    """JPEG and BMP bodies decode as cv2.imdecode(IMREAD_COLOR) does (the
+    reference's route): each 200 answer equals the predictor's on that
+    decode, and the EXIF-6 page arrives turned upright (64x48 stored as
+    48x64)."""
+    import cv2
+    from PIL import Image
+
+    base, predictor, _ = served
+    page = np.random.RandomState(11).randint(0, 256, (48, 64, 3)).astype(np.uint8)
+    page = cv2.GaussianBlur(page, (5, 5), 0)
+    buf = io.BytesIO()
+    if kind == "bmp":
+        Image.fromarray(page).save(buf, format="BMP")
+    else:
+        Image.fromarray(page).save(buf, format="JPEG", quality=90,
+                                   **({"exif": _exif6()} if kind == "jpeg_exif6" else {}))
+    body = buf.getvalue()
+    want = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+    resp = _post(base, body, f"image/{kind[:4]}")
+    assert resp["image_hw"] == list(want.shape[:2]) == ([64, 48] if kind == "jpeg_exif6"
+                                                          else [48, 64])
+    assert len(resp["detections"]) > 0
+    _assert_response_matches(resp, predictor(want.astype(np.float32)))
+
+
 def test_threshold_query_param(served):
     base, _, _ = served
     image = np.random.RandomState(1).uniform(0, 255, (64, 64, 3)).astype(np.float32)
@@ -158,15 +194,18 @@ def test_concurrent_requests_are_batched(served):
 
 
 def test_bad_requests(served):
-    """Bodies the port cannot decode (JPEG, anything not PNG or .npy) get
-    400, as the reference answers when cv2.imdecode fails; unknown paths
-    404."""
+    """Bodies that do not decode (garbage; a truncated JPEG, which
+    cv2.imdecode refuses too) get 400, as the reference answers when
+    cv2.imdecode fails; unknown paths 404."""
+    import cv2
     from PIL import Image
 
     base, _, _ = served
     jpeg = io.BytesIO()
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(jpeg, format="JPEG")
-    for body, ctype in ((b"not an image", "image/png"), (jpeg.getvalue(), "image/jpeg")):
+    truncated = jpeg.getvalue()[:-40]
+    assert cv2.imdecode(np.frombuffer(truncated, np.uint8), cv2.IMREAD_COLOR) is None
+    for body, ctype in ((b"not an image", "image/png"), (truncated, "image/jpeg")):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(base, body, ctype)
         assert e.value.code == 400
