@@ -47,7 +47,11 @@ family):
 - JPEG and BMP pages (``tests/golden/jpeg``, both decode routes held to
   the references' digests) through ``train pascal``, ``evaluate`` of
   Pascal VOC, COCO (``--coco``), Open Images and KITTI layouts,
-  ``predict`` and ``serve``.
+  ``predict`` and ``serve``;
+- the other page formats (``tests/golden/pages``: progressive, CMYK and
+  4:1:1 JPEG, RLE8 BMP, CCITT G4, LZW and JPEG TIFF; both decode routes
+  held to the references' digests) through ``train csv``, ``predict`` and
+  ``serve``.
 
 The fused 1x1 conv kernel (B7) is wired into no model, so only the kernel
 check runs it.
@@ -158,6 +162,12 @@ scales  = 1 1.2 1.6
 # train pascal for DATASET_STEPS bf16 steps at batch DATASET_BATCH
 JPEG_PAGES = ROOT / "tests" / "golden" / "jpeg"
 DATASET_BATCH, DATASET_STEPS = 2, 2
+# the pages phase: the full-size pages of tests/golden/pages
+# (tools/make_pages.py) through train csv (PAGES_STEPS bf16 steps at batch
+# PAGES_BATCH), predict and serve
+GOLDEN_PAGES = ROOT / "tests" / "golden" / "pages"
+PAGES_BATCH, PAGES_STEPS = 2, 2
+PAGES_MATCH_PX = 0.005  # the 2-decimal rounding of a JSON box
 R101_SIDE, R101_PAGE, R101_PAGES = 1024, (1100, 1000), 16  # -> 1024x931, bucket 1024^2
 # the backbones phase: one RetinaNet of each other family, full width and
 # depth; CUDA-vs-CPU parity at 512x512 (pages of R101's parity), 2 bf16 train
@@ -3163,6 +3173,164 @@ def phase_datasets(dev):
     return total
 
 
+def phase_pages(dev):
+    """The page formats beyond sequential JPEG through the main path on the
+    card, ResNet-50 at full width and depth: the eight full-size pages of
+    ``tests/golden/pages`` (progressive JPEG from PIL and from cv2, CMYK
+    and 4:1:1 JPEG, an RLE8 BMP, CCITT G4, LZW-with-predictor and
+    JPEG-compressed TIFF) decoded by both routes, each SHA-256 equal to the
+    references' in ``digests.json`` and ``image_size`` equal to PIL's
+    size; a CSV of them -> ``train csv`` (bf16, batch 2, 2 steps, the
+    fused stem and its backward kernel); ``predict`` on the files (each
+    page's detections a direct predictor's on the file route's decode);
+    the files POSTed to ``serve`` one at a time (each answer the
+    predictor's on the body route's decode). Boxes are held to
+    PAGES_MATCH_PX. Each step's launch counters set to 0 just before it
+    and read just after."""
+    import numpy as np
+    import torch
+
+    from tdnet_torch.bin import predict, train
+    from tdnet_torch.data.image import decode_image, image_size
+    from tdnet_torch.models.io import load_model, save_model
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.ops import stem
+    from tdnet_torch.train.predictor import Predictor
+
+    t_phase = time.monotonic()
+    work = ROOT / "build" / "chip_smoke" / "pages"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    digests = json.loads((GOLDEN_PAGES / "digests.json").read_text())
+    names = sorted(digests)
+    require(len(names) == 8, f"{len(names)} pages in {GOLDEN_PAGES}")
+
+    # 1. both decode routes against the references' digests
+    decode_ms = {"pil": {}, "cv2": {}}
+    files, file_rgb, body_bgr = {}, {}, {}
+    for name in names:
+        path, info = GOLDEN_PAGES / name, digests[name]
+        files[name] = data = path.read_bytes()
+        t0 = time.perf_counter()
+        rgb = decode_image(data, route="pil")
+        t1 = time.perf_counter()
+        body = decode_image(data, route="cv2")
+        t2 = time.perf_counter()
+        decode_ms["pil"][name], decode_ms["cv2"][name] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+        file_rgb[name] = rgb
+        body_bgr[name] = np.ascontiguousarray(body[:, :, ::-1])
+        require(_sha256(rgb) == info["pil_rgb_sha256"], f"{name}: file route differs from PIL")
+        require(_sha256(body_bgr[name]) == info["cv2_bgr_sha256"],
+                f"{name}: body route differs from cv2.imdecode")
+        require(image_size(path) == tuple(info["size"]) == (rgb.shape[1], rgb.shape[0]),
+                f"{name}: image_size {image_size(path)}, PIL {info['size']}")
+    parted = [n for n in names if not np.array_equal(file_rgb[n], body_bgr[n][:, :, ::-1])]
+    require(parted == [n for n in names if not digests[n]["routes_equal"]],
+            f"the routes part on {parted}")
+
+    # 2. train csv on the pages
+    rows = []
+    for name in names:
+        rows += [f"{GOLDEN_PAGES / name},{b[0]},{b[1]},{b[2]},{b[3]},table"
+                 for b in digests[name]["boxes"]]
+    (work / "annotations.csv").write_text("\n".join(rows) + "\n")
+    (work / "classes.csv").write_text("table,0\n")
+    bundle = work / "table.tdn"
+    with torch.device("meta"):
+        record = RetinaNet(1)  # the model record save_model reads
+    save_model(str(bundle), record, smoke_variables(),
+               inference_config={"min_side": MIN_SIDE, "max_side": MAX_SIDE})
+    counters = {**_all_counters(), "stem_bwd": stem.BWD_LAUNCHES}
+    seconds, launches = {}, {}
+    run = _tool_runner(dev, counters, seconds, launches)
+    sides = ["--image-min-side", str(MIN_SIDE), "--image-max-side", str(MAX_SIDE)]
+    on_card = ["--device", dev.type]
+    run("train_csv", train.main,
+        ["--bf16", "--batch-size", str(PAGES_BATCH), "--epochs", "1",
+         "--steps", str(PAGES_STEPS), "--log-every", "1", "--no-snapshots",
+         "--weights", str(bundle), "--model-path", str(work / "trained.tdn"),
+         "--metrics-path", str(work / "metrics.jsonl"), "--device-normalize", *sides,
+         *on_card, "csv", str(work / "annotations.csv"), str(work / "classes.csv")])
+    recs = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in recs if "step" in r]
+    require(len(losses) == PAGES_STEPS and np.isfinite(losses).all(), f"losses {losses}")
+
+    # 3. predict on the files (f32, device normalize)
+    model, variables, meta = load_model(str(bundle))
+    inference = dict(min_side=meta["inference"]["min_side"],
+                     max_side=meta["inference"]["max_side"])
+
+    def predictor(thr):
+        return Predictor(model, variables, device=dev, device_preprocess=True,
+                         score_threshold=thr, **inference)
+
+    paths = [str(GOLDEN_PAGES / n) for n in names]
+    file_pages = [np.ascontiguousarray(file_rgb[n][:, :, ::-1]).astype(np.float32)
+                  for n in names]  # as read_image_bgr reads them
+    probe = predictor(0.05)  # the predict CLI's: the bundle's threshold, then its own
+    thr, gap = _gap_threshold([probe(p) for p in file_pages])
+    run("predict", predict.main, [str(bundle), *paths, "--output-dir", str(work / "predict"),
+                                  "--score-threshold", repr(thr), "--device-normalize",
+                                  *on_card])
+    lines = [json.loads(x) for x in (work / "predict" / "detections.jsonl").read_text().splitlines()]
+    require([x["image"] for x in lines] == paths, "one JSONL line a page, in order")
+    worst, n_predict = 0.0, 0
+    for line, page in zip(lines, file_pages):
+        worst = max(worst, _served_match(line["detections"], probe(page), thr))
+        n_predict += len(line["detections"])
+    require(n_predict > 0, "predict compared no detections")
+    require(worst <= PAGES_MATCH_PX + 1e-6, f"predict's boxes off by {worst} px")
+
+    # 4. serve: the files as bodies, one at a time
+    ctypes = {".jpg": "image/jpeg", ".bmp": "image/bmp", ".tif": "image/tiff"}
+    direct = predictor(thr)
+    base, httpd, batcher = _serve(predictor(thr), max_batch=4,
+                                  max_delay_ms=SERVE_MAX_DELAY_MS, default_threshold=thr)
+    try:
+        for c in counters.values():
+            c.reset()
+        sync(dev)
+        t0 = time.monotonic()
+        answers = [_post(base, files[n], ctypes[Path(n).suffix]) for n in names]
+        sync(dev)
+        seconds["serve"] = time.monotonic() - t0
+        launches["serve"] = {k: c.count for k, c in counters.items()}
+    finally:
+        _stop(httpd, batcher)
+    require(all(a[0] == 200 for a in answers), f"serve answers {[a[:2] for a in answers]}")
+    serve_worst, n_served = 0.0, 0
+    for a, name in zip(answers, names):
+        page = body_bgr[name]
+        require(a[1]["image_hw"] == list(page.shape[:2]),
+                f"served image_hw {a[1]['image_hw']}, decoded {page.shape[:2]}")
+        serve_worst = max(serve_worst, _served_match(a[1]["detections"],
+                                                     direct.predict_batch([page])[0], thr))
+        n_served += len(a[1]["detections"])
+    require(n_served > 0, "serve compared no detections")
+    require(serve_worst <= PAGES_MATCH_PX + 1e-6, f"served boxes off by {serve_worst} px")
+
+    for step, got in launches.items():
+        want = ("stem", "stem_bwd") if step == "train_csv" else ("stem", "nms")
+        require(all(got[k] >= 1 for k in want), f"{step} skipped a kernel: {got}")
+    total = {k: sum(step[k] for step in launches.values()) for k in counters}
+    emit({"phase": "pages", "ok": True,
+          "pages": {n: {"bytes": digests[n]["bytes"], "size": digests[n]["size"]} for n in names},
+          "routes_parted": parted,
+          "decode_ms": decode_ms,
+          "decode_ms_mean": {r: sum(d.values()) / len(d) for r, d in decode_ms.items()},
+          "train_csv": {"dtype": "bfloat16", "batch": PAGES_BATCH, "losses": losses,
+                        "seconds_per_step": seconds["train_csv"] / PAGES_STEPS,
+                        "launches_per_step": {k: v / PAGES_STEPS for k, v
+                                              in launches["train_csv"].items()}},
+          "predict": {"pages": len(paths), "score_threshold": thr, "threshold_gap": gap,
+                      "detections_compared": n_predict, "max_box_diff_px": worst},
+          "serve": {"bodies": len(names), "detections_compared": n_served,
+                    "max_box_diff_px": serve_worst},
+          "seconds": seconds, "launches": launches, "launches_total": total,
+          "phase_seconds": time.monotonic() - t_phase})
+    return total
+
+
 def main() -> int:
     if not (ROOT / "tdnet_torch" / "__init__.py").is_file():
         print("chip_smoke: tdnet_torch/ is missing next to this script",
@@ -3209,6 +3377,8 @@ def main() -> int:
         table_launches = phase_table_workflow(dev)
         phase = "datasets"
         dataset_launches = phase_datasets(dev)
+        phase = "pages"
+        page_launches = phase_pages(dev)
     except Exception as exc:  # report the failed phase, print no result
         import traceback
 
@@ -3219,11 +3389,12 @@ def main() -> int:
     # launches: the main paths' runs (predict's two routes, training, the
     # train CLI and its initial-weight flags, config 5, config 4, the other
     # backbone families, serving, the CLIs, the table workflow, the JPEG and
-    # BMP pages through the dataset CLIs); conv1x1 (B7) is wired into no
-    # model, in the JAX package too, so no path launches it
+    # BMP pages through the dataset CLIs, the other page formats through
+    # train, predict and serve); conv1x1 (B7) is wired into no model, in
+    # the JAX package too, so no path launches it
     runs = (launches, train_launches, train_cli_launches, init_launches,
             soft_launches, r101_launches, backbone_launches, serve_launches,
-            cli_launches, table_launches, dataset_launches)
+            cli_launches, table_launches, dataset_launches, page_launches)
     sources = {
         "ingest": ("tdnet_torch/csrc/ingest.cu", "tdnet/ops/pallas_ingest.py:137"),
         "stem": ("tdnet_torch/csrc/stem.cu", "tdnet/ops/pallas_stem.py:676"),

@@ -5,7 +5,7 @@
 
 Writes ``detections.jsonl`` (one line a page, boxes in page coordinates)
 and an annotated ``det_<name>.png`` copy of each page. Pages are PNG, JPEG,
-BMP or ``.npy``. Runs on CUDA unless ``--device cpu``. ``--device-normalize``
+BMP, TIFF or ``.npy``. Runs on CUDA unless ``--device cpu``. ``--device-normalize``
 (not in the reference's predict) sends uint8 pages through the fused
 ingest+stem kernel, as serve's flag does.
 """
@@ -31,7 +31,7 @@ __all__ = ["parse_args", "main", "label_names_from_csv", "predictor_from_bundle"
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Run tdnet_torch inference on images.")
     parser.add_argument("model", help=".tdn model bundle")
-    parser.add_argument("images", nargs="+", help="input image paths (PNG, JPEG, BMP or .npy)")
+    parser.add_argument("images", nargs="+", help="input image paths (PNG, JPEG, BMP, TIFF or .npy)")
     parser.add_argument("--output-dir", default="./predictions", type=str)
     parser.add_argument("--score-threshold", default=0.5, type=float,
                         help="drawing and report threshold")

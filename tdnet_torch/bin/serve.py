@@ -11,7 +11,7 @@ Endpoints:
     GET  /healthz    -> {"status": "ok", "model": ..., "device": ...}
     GET  /stats      -> request and batch counters, latency quantiles, the
                         fused-stem state and the host/dispatch split
-    POST /v1/detect  -> body: a PNG, JPEG or BMP (decoded as
+    POST /v1/detect  -> body: a PNG, JPEG, BMP or TIFF (decoded as
                         ``cv2.imdecode(..., IMREAD_COLOR)`` does, a JPEG
                         turned by its EXIF orientation) or a raw ``.npy``
                         (H, W, 3) BGR array (Content-Type:

@@ -2,12 +2,33 @@
 decoders: PIL's ``convert("RGB")`` for files (``route="pil"``) and
 ``cv2.imdecode(..., IMREAD_COLOR)`` for serve bodies (``route="cv2"``).
 
-Reads BI_RGB at 1, 4 and 8 bits (palette), 16 (5-5-5), 24 and 32 bits, and
+Reads BI_RGB at 1, 4 and 8 bits (palette), 16 (5-5-5), 24 and 32 bits,
 BI_BITFIELDS at 16 bits (5-6-5 or 5-5-5) and 32 bits (8-8-8 in the usual
-places), with any of the header versions (OS/2 core, 40, 52, 56, 108, 124
-bytes), bottom-up or top-down rows padded to 4 bytes. Alpha is dropped.
-The routes differ only at 16 bits: PIL scales a 5-bit sample by ``v * 255
-// 31`` (6-bit: ``// 63``), cv2 shifts it left. RLE compression raises.
+places), and BI_RLE8 and BI_RLE4, with any of the header versions (OS/2
+core, 40, 52, 56, 108, 124 bytes), bottom-up or top-down rows padded to 4
+bytes. Alpha is dropped. At 16 bits PIL scales a 5-bit sample by ``v *
+255 // 31`` (6-bit: ``// 63``), cv2 shifts it left.
+
+The two routes decode RLE each by its own code, and agree on the streams
+encoders write: encoded runs, absolute runs padded to a 16-bit word, end
+of line, end of bitmap, and deltas, the pixels a delta or an early end of
+line skips taking palette entry 0. They part on streams that break the
+format's rules, and each rule is kept:
+
+- PIL (``BmpRleDecoder``) builds one stream of indices, row after row:
+  it cuts an encoded run at the row's end, lets an absolute run run on
+  into the next row, reads a delta's two bytes and then takes the two
+  that follow as (right, down), reads ``n // 2`` bytes for an absolute
+  RLE4 run of ``n`` pixels (an odd run loses its last pixel), aligns to
+  the file's 16-bit words, and fails where the stream ends before the last
+  pixel.
+- cv2 (``BmpDecoder::readData``) writes row by row and fails on a run
+  that passes the row's end; a delta, an end of line and an end of bitmap
+  fill what they skip with palette entry 0 (an end of line right after
+  another, or at a row's start in RLE4, fills a whole row; in RLE8 an
+  end of line right after an encoded run that filled its row is
+  dropped). In RLE4 a delta moves right only and an end of bitmap ends
+  the row alone. It fails where the stream ends before the last row.
 """
 
 from __future__ import annotations
@@ -21,7 +42,7 @@ __all__ = ["SIGNATURE", "READS", "ROUTES", "decode_bmp", "bmp_size"]
 
 SIGNATURE = b"BM"
 READS = ("BMP (BI_RGB at 1, 4, 8, 16, 24 and 32 bits; BI_BITFIELDS at 16 and "
-         "32 bits)")
+         "32 bits; BI_RLE8 and BI_RLE4)")
 ROUTES = ("pil", "cv2")
 
 _BI_RGB, _BI_RLE8, _BI_RLE4, _BI_BITFIELDS = 0, 1, 2, 3
@@ -65,6 +86,138 @@ def _rows(data: bytes, offset: int, width: int, height: int, bits: int,
     return rows if top_down else rows[::-1]
 
 
+def _palette(data: bytes, size: int, bits: int, colors: int) -> np.ndarray:
+    """(2^bits, 3) RGB entries; those the file leaves out are black."""
+    entry = 3 if size == 12 else 4
+    n = colors or (1 << bits)
+    start = 14 + size
+    table = np.frombuffer(data[start:start + n * entry], np.uint8)
+    if table.size != n * entry:
+        raise ValueError("truncated BMP palette")
+    palette = np.zeros((1 << bits, 3), np.uint8)
+    palette[:min(n, 1 << bits)] = table.reshape(n, entry)[:1 << bits, 2::-1]
+    return palette
+
+
+def _rle_pil(data: bytes, pos: int, width: int, height: int, rle4: bool) -> np.ndarray:
+    """PIL's ``BmpRleDecoder``: (height, width) palette indices, in the
+    file's row order."""
+    out = bytearray()
+    x, total, end = 0, width * height, len(data)
+    while len(out) < total:
+        if pos + 2 > end:
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:  # encoded: a run cut at the row's end
+            count = max(0, min(count, width - x))
+            if rle4:
+                out += bytes([byte >> 4, byte & 15]) * (count >> 1) + bytes([byte >> 4])[:count & 1]
+            else:
+                out += bytes([byte]) * count
+            x += count
+        elif byte == 0:  # end of line
+            out += bytes(-len(out) % width)
+            x = 0
+        elif byte == 1:  # end of bitmap
+            break
+        elif byte == 2:  # delta, read at the two bytes after its own
+            if pos + 2 > end:
+                break
+            if pos + 4 > end:
+                raise ValueError("truncated RLE BMP delta")
+            right, down = data[pos + 2], data[pos + 3]
+            pos += 4
+            out += bytes(right + down * width)
+            x = len(out) % width
+        else:  # absolute: byte pixels, the RLE4 bytes counted as byte // 2
+            n = byte // 2 if rle4 else byte
+            got = data[pos:pos + n]
+            pos += len(got)
+            if rle4:
+                pairs = np.frombuffer(got, np.uint8)
+                out += np.stack([pairs >> 4, pairs & 15], axis=1).tobytes()
+            else:
+                out += got
+            if len(got) < n:
+                break
+            x += byte
+            pos += pos & 1  # PIL aligns to the file's 16-bit words
+    if len(out) < total:
+        raise ValueError("RLE BMP data ends before its last pixel")
+    return np.frombuffer(bytes(out[:total]), np.uint8).reshape(height, width)
+
+
+def _rle_cv2(data: bytes, pos: int, width: int, height: int, rle4: bool) -> np.ndarray:
+    """OpenCV's RLE decoder: (height, width) palette indices, in the file's
+    row order."""
+    out = np.zeros((height, width), np.uint8)
+    x = y = 0
+    end = len(data)
+
+    def fill(count: int, value: int) -> None:
+        nonlocal x, y
+        while True:
+            n = min(count, width - x)
+            out[y, x:x + n] = value
+            x, count = x + n, count - n
+            if x >= width:
+                x, y = 0, y + 1
+                if y >= height:
+                    return
+            if count <= 0:
+                return
+
+    line_end_flag = False
+    while True:
+        if pos + 2 > end:
+            raise ValueError("RLE BMP data ends before its last row")
+        count, code = data[pos], data[pos + 1]
+        pos += 2
+        if count:  # encoded
+            if x + count > width:
+                raise ValueError("RLE BMP run passes the end of its row")
+            if rle4:
+                out[y, x:x + count] = np.resize(np.uint8([code >> 4, code & 15]), count)
+                x += count
+                continue
+            row = y
+            fill(count, code)
+            line_end_flag = y != row
+            if y >= height:
+                break
+        elif code > 2:  # absolute, padded to a 16-bit word
+            if x + code > width:
+                raise ValueError("RLE BMP run passes the end of its row")
+            n = ((((code + 1) >> 1) + 1) & ~1) if rle4 else (code + 1) & ~1
+            if pos + n > end:
+                raise ValueError("RLE BMP data ends before its last row")
+            raw = np.frombuffer(data, np.uint8, n, pos)
+            pos += n
+            if rle4:
+                raw = np.stack([raw >> 4, raw & 15], axis=1).reshape(-1)
+            out[y, x:x + code] = raw[:code]
+            x += code
+            line_end_flag = False
+        else:  # end of line (0), end of bitmap (1), delta (2)
+            skip, down = width - x, height - y
+            if rle4 or code or not line_end_flag or skip < width:
+                if code == 2:
+                    if pos + 2 > end:
+                        raise ValueError("RLE BMP data ends before its last row")
+                    skip, down = data[pos], data[pos + 1]
+                    pos += 2
+                if code and not rle4:  # RLE4 skips to the row's end or dx only
+                    skip += down * width
+                if y >= height:
+                    break
+                fill(skip, 0)
+            line_end_flag = False
+            if y >= height:
+                break
+    return out
+
+
 def decode_bmp(data: bytes, route: str = "pil") -> np.ndarray:
     """BMP bytes -> (H, W, 3) uint8 RGB by the rule of ``route``."""
     if route not in ROUTES:
@@ -73,21 +226,23 @@ def decode_bmp(data: bytes, route: str = "pil") -> np.ndarray:
     if width <= 0 or height == 0:
         raise ValueError(f"bad BMP size {width}x{height}")
     if compression in (_BI_RLE8, _BI_RLE4):
-        raise ValueError("RLE-compressed BMP is not read")
+        if bits != (8 if compression == _BI_RLE8 else 4):
+            raise ValueError(f"BI_RLE{4 if compression == _BI_RLE4 else 8} BMP at {bits} bits")
+        rle = _rle_pil if route == "pil" else _rle_cv2
+        if route == "pil" and colors == 2 and data[14 + size:22 + size:4] == b"\x00\xff":
+            # two entries, black and white: PIL takes the page as mode "1",
+            # which its RLE decoder cannot fill
+            if _palette(data, size, bits, colors)[:2].tolist() == [[0, 0, 0], [255] * 3]:
+                raise ValueError("RLE BMP with a black and white palette (PIL fails on one)")
+        index = rle(data, offset, width, height, compression == _BI_RLE4)
+        return _palette(data, size, bits, colors)[index if top_down else index[::-1]]
     if compression not in (_BI_RGB, _BI_BITFIELDS):
         raise ValueError(f"BMP compression {compression} is not read")
     if compression == _BI_BITFIELDS and bits not in (16, 32):
         raise ValueError(f"BI_BITFIELDS BMP at {bits} bits is not read")
     rows = _rows(data, offset, width, height, bits, top_down)
     if bits in (1, 4, 8):
-        entry = 3 if size == 12 else 4
-        n = colors or (1 << bits)
-        start = 14 + size
-        table = np.frombuffer(data[start:start + n * entry], np.uint8)
-        if table.size != n * entry:
-            raise ValueError("truncated BMP palette")
-        palette = np.zeros((1 << bits, 3), np.uint8)
-        palette[:min(n, 1 << bits)] = table.reshape(n, entry)[:1 << bits, 2::-1]
+        palette = _palette(data, size, bits, colors)
         if bits == 8:
             index = rows[:, :width]
         else:

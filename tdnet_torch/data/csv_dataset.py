@@ -7,7 +7,7 @@
   classes.csv:      class_name,id   (0-based, dense)
 
 Parse errors name the line. Images load through
-:func:`tdnet_torch.data.image.read_image_bgr` (PNG, JPEG, BMP or ``.npy``),
+:func:`tdnet_torch.data.image.read_image_bgr` (PNG, JPEG, BMP, TIFF or ``.npy``),
 and ``image_aspect_ratio`` reads the image header instead of decoding the
 page.
 """

@@ -1,10 +1,10 @@
 """Host-side image reading and preprocessing in numpy, the counterpart of
 ``tdnet/data/image.py``.
 
-:func:`read_image_bgr` decodes PNG, JPEG and BMP pages with the port's own
-decoders (``data/png.py``, ``data/jpeg.py``, ``data/bmp.py``: zlib and
-numpy), byte for byte as the reference's PIL ``convert("RGB")`` does, and
-reads ``.npy`` arrays. The format is sniffed from the content, as PIL does,
+:func:`read_image_bgr` decodes PNG, JPEG, BMP and TIFF pages with the
+port's own decoders (``data/png.py``, ``data/jpeg.py``, ``data/bmp.py``,
+``data/tiff.py``: zlib and numpy), byte for byte as the reference's PIL
+``convert("RGB")`` does, and reads ``.npy`` arrays. The format is sniffed from the content, as PIL does,
 not taken from the file's extension.
 
 The GPU machine has neither cv2 nor PIL, so :func:`resize_image` is a numpy
@@ -24,7 +24,7 @@ from typing import Tuple
 
 import numpy as np
 
-from tdnet_torch.data import bmp, jpeg, png
+from tdnet_torch.data import bmp, jpeg, png, tiff
 
 __all__ = [
     "CAFFE_MEAN_BGR",
@@ -42,27 +42,28 @@ __all__ = [
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], dtype=np.float32)
 
 
-READS = f"{png.READS}; {jpeg.READS}; {bmp.READS}"
+READS = f"{png.READS}; {jpeg.READS}; {bmp.READS}; {tiff.READS}"
 
 
 def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
-    """PNG, JPEG or BMP bytes, told apart by their first bytes -> (H, W, 3)
-    uint8 RGB by the rule of ``route``: ``"pil"`` (files: PIL's
+    """PNG, JPEG, BMP or TIFF bytes, told apart by their first bytes ->
+    (H, W, 3) uint8 RGB by the rule of ``route``: ``"pil"`` (files: PIL's
     ``convert("RGB")``) or ``"cv2"`` (serve bodies: ``cv2.imdecode(...,
-    IMREAD_COLOR)``, which turns a JPEG by its EXIF orientation)."""
+    IMREAD_COLOR)``, which turns a JPEG by its EXIF orientation; both turn
+    a TIFF by its ``Orientation``)."""
     if data.startswith(png.SIGNATURE):
         return png.decode_png(data, sixteen_bit=route)
     if data.startswith(jpeg.SIGNATURE):
         return jpeg.decode_jpeg(data, route=route)
     if data.startswith(bmp.SIGNATURE):
         return bmp.decode_bmp(data, route=route)
-    if data.startswith((b"II*\x00", b"MM\x00*")):
-        raise ValueError(f"TIFF pages are not read yet (ROADMAP A14.10); the port reads {READS}")
+    if data.startswith(tiff.SIGNATURES):
+        return tiff.decode_tiff(data, route=route)
     raise ValueError(f"unsupported image format; the port reads {READS}")
 
 
 def read_image_bgr(path) -> np.ndarray:
-    """An image file -> (H, W, 3) float32 BGR: PNG, JPEG or BMP (decoded as
+    """An image file -> (H, W, 3) float32 BGR: PNG, JPEG, BMP or TIFF (decoded as
     PIL's ``convert("RGB")``, then the channels flipped) or a ``.npy`` array
     that is already (H, W, 3) BGR."""
     path = os.fspath(path)
@@ -88,9 +89,9 @@ def write_image_bgr(path, image_bgr: np.ndarray) -> None:
 
 
 def image_size(path):
-    """(width, height) of a PNG, JPEG or BMP (from its headers, without
-    decoding pixels; a JPEG's EXIF orientation is not applied, as PIL's
-    ``.size``) or of a ``.npy`` image."""
+    """(width, height) of a PNG, JPEG, BMP or TIFF (from its headers,
+    without decoding pixels, as PIL's ``.size``: a JPEG's EXIF orientation
+    is not applied, a TIFF's ``Orientation`` is) or of a ``.npy`` image."""
     path = os.fspath(path)
     if path.endswith(".npy"):
         h, w = np.load(path, mmap_mode="r", allow_pickle=False).shape[:2]
@@ -103,6 +104,8 @@ def image_size(path):
             return bmp.bmp_size(head)
         if head.startswith(jpeg.SIGNATURE):
             return jpeg.jpeg_size(head + f.read())
+        if head.startswith(tiff.SIGNATURES):
+            return tiff.tiff_size(head + f.read())
     raise ValueError(f"{path}: unsupported image format; the port reads {READS}")
 
 

@@ -3,7 +3,7 @@
 
 Reads the VOCdevkit layout: {data_dir}/Annotations/*.xml, JPEGImages/,
 ImageSets/Main/{set_name}.txt. Same Dataset protocol as CSVDataset. Pages
-load through the port's ``read_image_bgr`` (JPEG, PNG or BMP) and the
+load through the port's ``read_image_bgr`` (JPEG, PNG, BMP or TIFF) and the
 aspect ratio comes from the image header (``image_size``).
 """
 

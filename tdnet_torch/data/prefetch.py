@@ -24,15 +24,18 @@ import numpy as np
 import torch
 
 from tdnet_torch.device import resolve_device
-from tdnet_torch.ops.ingest import pack_uint8_host
 
-__all__ = ["DevicePrefetcher"]
+__all__ = ["DevicePrefetcher", "prefetch_to_device"]
 
 _SENTINEL = object()
 
 
 def _pack_uint8_images(batch):
     """NHWC uint8 canvases -> (B, H, W*3) rows; other batches pass."""
+    # imported here: ops/ingest.py reads data/image.py, whose package
+    # imports this module
+    from tdnet_torch.ops.ingest import pack_uint8_host
+
     images = batch.get("images") if isinstance(batch, dict) else None
     if isinstance(images, np.ndarray) and images.dtype == np.uint8 \
             and images.ndim == 4 and images.shape[-1] == 3:
@@ -130,3 +133,10 @@ class DevicePrefetcher:
         stop = getattr(self, "_stop", None)  # absent if __init__ raised
         if stop is not None:
             stop.set()
+
+
+def prefetch_to_device(iterator, device=None, buffer_size: int = 2) -> DevicePrefetcher:
+    """Wrap a host batch iterator; yields device-resident batches (the
+    reference's ``prefetch_to_device``; its mesh sharding is the
+    ``device`` here, None meaning CUDA)."""
+    return DevicePrefetcher(iterator, device=device, buffer_size=buffer_size)

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["FrozenBatchNorm", "recording_bn_inputs", "Conv2d", "Dense",
-           "same_pads", "resize_nearest_like"]
+           "conv2d", "same_pads", "resize_nearest_like"]
 
 
 class FrozenBatchNorm(nn.Module):
@@ -75,6 +75,20 @@ def recording_bn_inputs(
             handle.remove()
 
 
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias=None, **kw) -> torch.Tensor:
+    """``F.conv2d`` with the float32 weight and bias rounded to the input's
+    dtype. A bfloat16 conv on the CPU is computed in float32 and its result
+    rounded to bfloat16, as XLA's CPU backend computes the reference's:
+    oneDNN's bfloat16 kernels returned NaN for ResNet-50's P6 at a 64x96
+    canvas in the train CLI's first steps of a process, and finite values
+    for the same call repeated."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        b = None if bias is None else bias.float()
+        return F.conv2d(x.float(), weight.float(), b, **kw).to(torch.bfloat16)
+    b = None if bias is None else bias.to(x.dtype)
+    return F.conv2d(x, weight.to(x.dtype), b, **kw)
+
+
 def same_pads(n: int, k: int, s: int):
     """TensorFlow 'SAME' padding (before, after) of one spatial dim."""
     total = max((-(-n // s) - 1) * s + k - n, 0)
@@ -96,10 +110,8 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        conv = functools.partial(F.conv2d, weight=w, bias=b, stride=self.stride,
-                                 groups=self.groups)
+        conv = functools.partial(conv2d, weight=self.weight, bias=self.bias,
+                                 stride=self.stride, groups=self.groups)
         if self.k == 1:
             return conv(x)
         ph = same_pads(x.shape[2], self.k, self.stride)

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tdnet_torch.models.layers import Conv2d, Dense, FrozenBatchNorm, same_pads
+from tdnet_torch.models.layers import Conv2d, Dense, FrozenBatchNorm, conv2d, same_pads
 from tdnet_torch.ops.block import fused_bottleneck_chain, kmajor_weights, supports_block
 
 __all__ = ["STAGE_SIZES", "Bottleneck", "StemConv", "ResNet", "max_pool_same"]
@@ -94,7 +94,7 @@ class StemConv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(features, 3, 7, 7))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), stride=2, padding=3)
+        return conv2d(x, self.weight, stride=2, padding=3)
 
 
 class ResNet(nn.Module):

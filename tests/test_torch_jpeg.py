@@ -5,6 +5,7 @@ on the ``cv2`` route (serve bodies). PIL and cv2 are oracles here only;
 the port imports neither (the last test proves it in a subprocess)."""
 
 import io
+import re
 import struct
 import subprocess
 import sys
@@ -236,14 +237,22 @@ def _put_block(bits, zz, pred, dc, ac):
     return int(zz[0])
 
 
+def _app_marker(adobe=None) -> bytes:
+    """JFIF, or an Adobe APP14 marker with the given colour transform."""
+    if adobe is None:
+        return b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+    return b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00" + bytes([adobe])
+
+
 # zigzag positions of the first row's AC terms (natural indices 1..7): a
 # block with only these has no AC terms in its columns
 _ROW0 = [1, 5, 6, 14, 15, 27, 28]
 
 
-def _sequential_jpeg(rng, h, w, factors, interleaved, restart, extreme=False):
-    """A JFIF baseline file of three components with the given (h, v)
-    sampling factors, random quantised coefficients (DC near the middle, a
+def _sequential_jpeg(rng, h, w, factors, interleaved, restart, extreme=False, adobe=None):
+    """A JFIF baseline file of a component for each of the given (h, v)
+    sampling factors (an Adobe marker with transform ``adobe`` in place of
+    JFIF where given), random quantised coefficients (DC near the middle, a
     few AC, some past a run of 16 and some at position 63), the Annex K
     tables in DHT, one interleaved scan or one scan a component, and a
     restart marker every ``restart`` MCUs (0: none). ``extreme``: the
@@ -271,10 +280,11 @@ def _sequential_jpeg(rng, h, w, factors, interleaved, restart, extreme=False):
                           wb=-(-w * fh // (8 * max_h)), hb=-(-h * fv // (8 * max_v))))
     quant = [rng.integers(q_lo, 40 if q_lo == 1 else 256, 64),
              rng.integers(q_lo, 60 if q_lo == 1 else 256, 64)]
-    out = [b"\xff\xd8", b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"]
+    out = [b"\xff\xd8", _app_marker(adobe)]
     for t, q in enumerate(quant):
         out.append(b"\xff\xdb\x00\x43" + bytes([t]) + bytes(q.astype(np.uint8)))
-    out.append(b"\xff\xc0" + struct.pack(">HBHHB", 17, 8, h, w, 3) + b"".join(
+    out.append(b"\xff\xc0" + struct.pack(">HBHHB", 8 + 3 * len(comps), 8, h, w, len(comps))
+               + b"".join(
         bytes([c["id"], (c["fh"] << 4) | c["fv"], c["tq"]]) for c in comps))
     for (tc, th), (counts, symbols) in _STD_TABLES.items():
         out.append(b"\xff\xc4" + struct.pack(">H", 19 + len(symbols)) + bytes([(tc << 4) | th])
@@ -343,6 +353,341 @@ def test_jpeg_scan_that_runs_out_of_data(cut, restart):
     _assert_both_routes(data[:at] + data[at + 200:])
 
 
+# --- progressive scans of the test's own (jcphuff.c's encoder): scripts
+# the two encoders above never write, among them ones that leave
+# coefficients unrefined, where libjpeg-turbo smooths blocks
+
+
+def _size_bits(v):
+    s = abs(v).bit_length()
+    return s, (v if v >= 0 else v + (1 << s) - 1)
+
+
+# every DC size at 5 bits; every AC symbol but size 15 at 9 bits (the EOBn
+# runs included)
+_PDC = (bytes([0, 0, 0, 0, 16] + [0] * 11), bytes(range(16)))
+_PAC_SYMBOLS = bytes(s for s in range(256) if s & 15 != 15)
+_PAC = (bytes([0] * 8 + [len(_PAC_SYMBOLS)] + [0] * 7), _PAC_SYMBOLS)
+
+
+class _ProgressiveScan:
+    """The bits of one scan: DC first or refinement, AC first with EOB runs,
+    AC refinement with its buffered correction bits."""
+
+    def __init__(self, ss, se, ah, al):
+        self.ss, self.se, self.ah, self.al = ss, se, ah, al
+        self.bits, self.dc, self.ac = _Bits(), _codes(*_PDC), _codes(*_PAC)
+        self.restart()
+
+    def restart(self):
+        self.preds, self.eobrun, self.be = {}, 0, []
+
+    def _emit_eobrun(self):
+        if self.eobrun:
+            r = self.eobrun.bit_length() - 1
+            self.bits.put(*self.ac[r << 4])
+            self.bits.put(self.eobrun - (1 << r), r)
+            self.eobrun = 0
+        for b in self.be:
+            self.bits.put(b, 1)
+        self.be = []
+
+    def block(self, cid, zz):
+        ss, se, ah, al = self.ss, self.se, self.ah, self.al
+        if ss == 0:
+            v = int(zz[0]) >> al
+            if ah:
+                self.bits.put(v & 1, 1)
+                return
+            s, extra = _size_bits(v - self.preds.get(cid, 0))
+            self.preds[cid] = v
+            self.bits.put(*self.dc[s])
+            self.bits.put(extra, s)
+            return
+        absv = [abs(int(zz[k])) >> al for k in range(64)]
+        sign = [1 if zz[k] >= 0 else -1 for k in range(64)]
+        if ah == 0:
+            run = 0
+            for k in range(ss, se + 1):
+                if absv[k] == 0:
+                    run += 1
+                    continue
+                self._emit_eobrun()
+                while run > 15:
+                    self.bits.put(*self.ac[0xF0])
+                    run -= 16
+                s, extra = _size_bits(sign[k] * absv[k])
+                self.bits.put(*self.ac[(run << 4) | s])
+                self.bits.put(extra, s)
+                run = 0
+            if run:
+                self.eobrun += 1
+                if self.eobrun == 0x7FFF:
+                    self._emit_eobrun()
+            return
+        eob = max([k for k in range(ss, se + 1) if absv[k] == 1], default=0)
+        run, br = 0, []
+        for k in range(ss, se + 1):
+            if absv[k] == 0:
+                run += 1
+                continue
+            while run > 15 and k <= eob:
+                self._emit_eobrun()
+                self.bits.put(*self.ac[0xF0])
+                run -= 16
+                for b in br:
+                    self.bits.put(b, 1)
+                br = []
+            if absv[k] > 1:
+                br.append(absv[k] & 1)
+                continue
+            self._emit_eobrun()
+            self.bits.put(*self.ac[(run << 4) | 1])
+            self.bits.put(int(sign[k] > 0), 1)
+            for b in br:
+                self.bits.put(b, 1)
+            br, run = [], 0
+        if run or br:
+            self.eobrun += 1
+            self.be += br
+            if self.eobrun == 0x7FFF or len(self.be) > 937:
+                self._emit_eobrun()
+
+    def flush(self) -> bytes:
+        self._emit_eobrun()
+        return self.bits.flush()
+
+
+def _progressive_jpeg(rng, h, w, factors, script, restart=0, adobe=None, dc_field=False):
+    """A progressive (SOF2) file of a component for each (h, v) sampling
+    factors, its quantised coefficients random (a DC that varies smoothly
+    over the page where ``dc_field``, else at random; AC terms of up to
+    +-60 in the first ten positions, rarer ones above, a run past 16),
+    coded by ``script``: (component indices, Ss, Se, Ah, Al) a scan."""
+    max_h, max_v = max(f[0] for f in factors), max(f[1] for f in factors)
+    mcus_x, mcus_y = -(-w // (8 * max_h)), -(-h // (8 * max_v))
+    comps = []
+    for ci, (fh, fv) in enumerate(factors):
+        rows, cols = mcus_y * fv, mcus_x * fh
+        zz = np.zeros((rows, cols, 64), np.int64)
+        if dc_field:
+            yy, xx = np.mgrid[0:rows, 0:cols]
+            zz[..., 0] = np.rint(40 * np.sin(yy / 2.3 + ci) * np.cos(xx / 3.1)) \
+                + rng.integers(-6, 7, (rows, cols))
+        else:
+            zz[..., 0] = rng.integers(-60, 60, (rows, cols))
+        zz[..., 1:10] = rng.integers(-60, 61, (rows, cols, 9)) * (rng.random((rows, cols, 9)) < 0.4)
+        for _ in range(rows * cols):
+            zz[rng.integers(rows), rng.integers(cols), rng.integers(10, 64)] = \
+                rng.choice([-1, 1]) * rng.integers(1, 30)
+        zz[0, 0, 11:] = 0
+        zz[0, 0, 30] = 3  # a run of 19 zeros: one ZRL
+        comps.append(dict(id=ci + 1, fh=fh, fv=fv, zz=zz, tq=min(ci, 1),
+                          wb=-(-w * fh // (8 * max_h)), hb=-(-h * fv // (8 * max_v))))
+    quant = [rng.integers(1, 40, 64), rng.integers(1, 60, 64)]
+    out = [b"\xff\xd8", _app_marker(adobe)]
+    for t, q in enumerate(quant):
+        out.append(b"\xff\xdb\x00\x43" + bytes([t]) + bytes(q.astype(np.uint8)))
+    out.append(b"\xff\xc2" + struct.pack(">HBHHB", 8 + 3 * len(comps), 8, h, w, len(comps))
+               + b"".join(bytes([c["id"], (c["fh"] << 4) | c["fv"], c["tq"]]) for c in comps))
+    for tc, (counts, symbols) in ((0, _PDC), (1, _PAC)):
+        out.append(b"\xff\xc4" + struct.pack(">H", 19 + len(symbols)) + bytes([tc << 4])
+                   + counts + symbols)
+    if restart:
+        out.append(b"\xff\xdd\x00\x04" + struct.pack(">H", restart))
+    for ids, ss, se, ah, al in script:
+        scan = [comps[i] for i in ids]
+        out.append(b"\xff\xda" + struct.pack(">HB", 6 + 2 * len(scan), len(scan)) + b"".join(
+            bytes([c["id"], 0]) for c in scan) + bytes([ss, se, (ah << 4) | al]))
+        if len(scan) > 1:
+            mcus = [[(c, my * c["fv"] + dy, mx * c["fh"] + dx) for c in scan
+                     for dy in range(c["fv"]) for dx in range(c["fh"])]
+                    for my in range(mcus_y) for mx in range(mcus_x)]
+        else:
+            c = scan[0]
+            mcus = [[(c, by, bx)] for by in range(c["hb"]) for bx in range(c["wb"])]
+        coder, n_rst = _ProgressiveScan(ss, se, ah, al), 0
+        for i, mcu in enumerate(mcus):
+            if restart and i and i % restart == 0:
+                out.append(coder.flush() + bytes([0xFF, 0xD0 + n_rst % 8]))
+                coder.restart()
+                n_rst += 1
+            for c, by, bx in mcu:
+                coder.block(c["id"], c["zz"][by, bx])
+        out.append(coder.flush())
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+SCRIPTS = {
+    # libjpeg's jpeg_simple_progression for three components
+    "simple": [([0, 1, 2], 0, 0, 0, 1), ([0], 1, 5, 0, 2), ([2], 1, 63, 0, 1),
+               ([1], 1, 63, 0, 1), ([0], 6, 63, 0, 2), ([0], 1, 63, 2, 1),
+               ([0, 1, 2], 0, 0, 1, 0), ([2], 1, 63, 1, 0), ([1], 1, 63, 1, 0),
+               ([0], 1, 63, 1, 0)],
+    # a DC scan a component, spectral selection only
+    "spectral": [([0], 0, 0, 0, 0), ([1], 0, 0, 0, 0), ([2], 0, 0, 0, 0)]
+                + [([c], lo, hi, 0, 0) for c in range(3) for lo, hi in ((1, 2), (3, 9), (10, 63))],
+    # two refinements of every band, Al 3 -> 2 -> 1 -> 0
+    "deep": [([0, 1, 2], 0, 0, 0, 2), ([0, 1, 2], 0, 0, 2, 1), ([0, 1, 2], 0, 0, 1, 0)]
+            + [([c], 1, 63, 0, 3) for c in range(3)]
+            + [([c], 1, 63, a + 1, a) for a in (2, 1, 0) for c in range(3)],
+    # block smoothing: AC bands 6-63 sent at Al 1 only (coefficients 6-9
+    # unrefined, the five below known)
+    "smooth_ac6": [([0, 1, 2], 0, 0, 0, 0)] + [([c], 1, 5, 0, 0) for c in range(3)]
+                  + [([c], 6, 63, 0, 1) for c in range(3)],
+    # every AC band at Al 1 only: the first five estimated where still zero,
+    # the estimate capped at 1
+    "smooth_ac1": [([0, 1, 2], 0, 0, 0, 0)] + [([c], 1, 63, 0, 1) for c in range(3)],
+    # only the first two AC coefficients sent: the others never (Al -1)
+    "smooth_two": [([0, 1, 2], 0, 0, 0, 1)] + [([c], 1, 2, 0, 0) for c in range(3)],
+    # DC only, at Al 1: the DC interpolated and nine AC terms estimated
+    "smooth_dc": [([0, 1, 2], 0, 0, 0, 1)],
+}
+
+
+PROGRESSIVE_SIZES = [(1, 1), (7, 9), (17, 33), (40, 57), (67, 93)]
+
+
+@pytest.mark.parametrize("shape", PROGRESSIVE_SIZES, ids=[f"{h}x{w}" for h, w in PROGRESSIVE_SIZES])
+@pytest.mark.parametrize("encoder", ["pil", "cv2"])
+def test_jpeg_progressive_from_both_encoders(encoder, shape):
+    """Progressive files as PIL (``progressive=True``) and cv2
+    (``IMWRITE_JPEG_PROGRESSIVE``) write them, qualities 75 and 90, every
+    sampling they offer (4:1:1 through cv2), sizes off the MCU grid."""
+    img = _image(shape, sum(shape))
+    for q in (75, 90):
+        if encoder == "pil":
+            files = [_pil_jpeg(img, quality=q, progressive=True, subsampling=sub)
+                     for sub in (0, 2)]
+            files.append(_pil_jpeg(img[..., :1], quality=q, progressive=True))
+            files.append(_pil_jpeg(img, quality=q, progressive=True, restart_marker_blocks=3))
+        else:
+            files = [_cv2_jpeg(img, cv2.IMWRITE_JPEG_QUALITY, q, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                               cv2.IMWRITE_JPEG_SAMPLING_FACTOR, f)
+                     for f in (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                               cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411)]
+        for data in files:
+            assert b"\xff\xc2" in data
+            _assert_both_routes(data)
+            assert jpeg.jpeg_size(data) == Image.open(io.BytesIO(data)).size
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (17, 33), (40, 57)], ids=["1x1", "17x33", "40x57"])
+def test_jpeg_cmyk_and_411_equal_both_routes(shape):
+    """CMYK as PIL writes it (Adobe transform 0), sequential and
+    progressive, and 4:1:1 (h4v1, replicated) as cv2 writes it. The two
+    routes' CMYK rules differ by 1 at most, and do differ."""
+    img = _image(shape, 7)
+    cmyk = Image.fromarray(img).convert("CMYK")
+    parted = 0
+    for kw in ({}, {"progressive": True}):
+        buf = io.BytesIO()
+        cmyk.save(buf, "JPEG", quality=90, **kw)
+        data = buf.getvalue()
+        _assert_both_routes(data)
+        pil, cv = (jpeg.decode_jpeg(data, route=r).astype(int) for r in jpeg.ROUTES)
+        assert np.abs(pil - cv).max() <= 1
+        parted += int((pil != cv).any())
+        assert jpeg.jpeg_size(data) == Image.open(io.BytesIO(data)).size
+    assert shape == (1, 1) or parted == 2
+    for q in (50, 95):
+        data = _cv2_jpeg(img, cv2.IMWRITE_JPEG_QUALITY, q, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                         cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411)
+        assert data[data.index(b"\xff\xc0") + 11] == 0x41  # Y sampled h4v1
+        _assert_both_routes(data)
+
+
+FOUR_AND_ODD = {  # name: (sampling factors, Adobe transform, progressive)
+    "ycck": (((1, 1),) * 4, 2, False),
+    "ycck_subsampled": (((2, 2), (1, 1), (1, 1), (2, 2)), 2, False),
+    "ycck_progressive": (((2, 1), (1, 1), (1, 1), (2, 1)), 2, True),
+    "cmyk_adobe0": (((2, 2), (1, 1), (1, 1), (2, 2)), 0, False),
+    "cmyk_without_adobe": (((1, 1),) * 4, None, True),
+    "h4v2": (((4, 2), (1, 1), (1, 1)), None, False),
+    "h4v1_h2v1": (((4, 1), (2, 1), (1, 1)), None, False),
+    "v4_v2": (((1, 4), (1, 2), (1, 1)), None, True),
+    "h3v2": (((3, 2), (1, 1), (1, 1)), None, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FOUR_AND_ODD))
+def test_jpeg_four_components_and_large_sampling_factors(case):
+    """Files of the test's own encoders: YCCK (Adobe transform 2, which no
+    encoder here writes), CMYK with and without an Adobe marker, and
+    factors above 2 (int_upsample's replication, and the fancy h2v1 and
+    h1v2 for ratios of 2 between factors of 4 and 2)."""
+    factors, adobe, progressive = FOUR_AND_ODD[case]
+    n = len(factors)
+    for h, w in ((37, 45), (5, 3)):
+        rng = np.random.default_rng(len(case) + h)
+        if progressive:
+            script = [(list(range(n)), 0, 0, 0, 1)] + [([c], 1, 63, 0, 0) for c in range(n)] \
+                + [(list(range(n)), 0, 0, 1, 0)]
+            data = _progressive_jpeg(rng, h, w, factors, script, adobe=adobe)
+        else:
+            data = _sequential_jpeg(rng, h, w, factors, True, 0, adobe=adobe)
+        _assert_both_routes(data)
+
+
+GEOMETRIES = [  # (h, w, sampling factors, restart interval)
+    (37, 45, ((2, 2), (1, 1), (1, 1)), 0),
+    (20, 33, ((2, 2), (1, 1), (1, 1)), 2),  # two iMCU rows, the last one short
+    (9, 70, ((2, 1), (1, 2), (1, 1)), 3),
+    (23, 17, ((1, 2), (1, 1), (1, 1)), 0),
+    (3, 5, ((1, 1), (1, 1), (1, 1)), 1),
+]
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_jpeg_progressive_scan_scripts_and_block_smoothing(name, monkeypatch):
+    """Scan scripts of the test's own (spectral selection, successive
+    approximation down from Al 3, restart intervals, non-interleaved DC)
+    at sizes off the MCU grid; and scripts that leave some of the first
+    nine AC coefficients unrefined, where libjpeg-turbo's block smoothing
+    changes the output (shown by turning it off): with the last iMCU row
+    short (20 rows at 4:2:0), its row window is not a plain clamp."""
+    files = [_progressive_jpeg(np.random.default_rng(i), h, w, f, SCRIPTS[name], rst,
+                               dc_field=True) for i, (h, w, f, rst) in enumerate(GEOMETRIES)]
+    for data in files:
+        _assert_both_routes(data)
+    smooths = name in ("smooth_ac1", "smooth_two", "smooth_dc")
+    monkeypatch.setattr(jpeg, "_smoothing", lambda frame: False)
+    changed = [not np.array_equal(jpeg.decode_jpeg(d), _pil(d)) for d in files]
+    assert any(changed) == smooths, changed
+
+
+def _cut_scans(data: bytes, first_interval: bool):
+    """Copies of a progressive file with one scan's data cut short: the
+    second half of the scan (or of its first restart interval) dropped."""
+    marker = re.compile(rb"\xff([^\x00])" if first_interval else rb"\xff([^\x00\xd0-\xd7])")
+    for m in re.finditer(rb"\xff\xda", data):
+        start = m.start() + 2 + struct.unpack(">H", data[m.start() + 2:m.start() + 4])[0]
+        end = marker.search(data, start).start()
+        yield data[:start + (end - start) // 2] + data[end:]
+
+
+@pytest.mark.parametrize("restart", [0, 4], ids=["no_rst", "rst4"])
+def test_jpeg_progressive_scan_that_runs_out_of_data(restart):
+    """Each scan of a progressive file cut short in turn: the MCU that runs
+    out reads zero bits and the rest of its interval keeps what earlier
+    scans gave it, as libjpeg leaves it. cv2 decodes every copy; PIL
+    raises on some (it checks libjpeg's warnings), and equals the port on
+    the rest."""
+    img = _image((45, 71), 3)
+    files = [_pil_jpeg(img, quality=90, progressive=True, restart_marker_blocks=restart),
+             _progressive_jpeg(np.random.default_rng(2), 45, 71, ((2, 2), (1, 1), (1, 1)),
+                               SCRIPTS["deep"], restart)]
+    for data in files:
+        for cut in _cut_scans(data, first_interval=bool(restart)):
+            np.testing.assert_array_equal(jpeg.decode_jpeg(cut, route="cv2"), _cv2(cut))
+            try:
+                want = _pil(cut)
+            except OSError:
+                continue
+            np.testing.assert_array_equal(jpeg.decode_jpeg(cut, route="pil"), want)
+
+
 def _with_marker(data: bytes, old: bytes, new: bytes) -> bytes:
     assert old in data
     return data.replace(old, new, 1)
@@ -350,34 +695,36 @@ def _with_marker(data: bytes, old: bytes, new: bytes) -> bytes:
 
 def test_jpeg_cases_that_raise():
     """What the port does not read raises on both routes, each message
-    naming the case (progressive its ROADMAP item); both references fail
-    on a truncated file too (PIL raises, cv2 returns None)."""
+    naming the case. Both references fail on each of these too (PIL
+    raises, cv2 returns None), but for arithmetic coding, which
+    libjpeg-turbo decodes (here a Huffman scan read as arithmetic-coded)."""
     img = _image((24, 40), 9)
     base = _pil_jpeg(img, quality=80)
+    rng = np.random.default_rng(0)
     cases = {
-        "A14.7.1": _pil_jpeg(img, progressive=True),
         "arithmetic": _with_marker(base, b"\xff\xc0", b"\xff\xc9"),
         "12-bit": base.replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x11\x0c", 1),
         "DNL": base.replace(b"\xff\xc0\x00\x11\x08\x00\x18", b"\xff\xc0\x00\x11\x08\x00\x00", 1),
-        "sampling factors 4x1": _cv2_jpeg(img, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                                          cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
+        "whole ratios": _sequential_jpeg(rng, 21, 30, ((3, 1), (2, 1), (1, 1)), True, 0),
+        "bad progressive JPEG scan": _progressive_jpeg(  # Al not Ah - 1
+            rng, 21, 30, ((1, 1),) * 3, [([0, 1, 2], 0, 0, 0, 2), ([0, 1, 2], 0, 0, 2, 0)]),
+        "AC scan over 3 components": _progressive_jpeg(
+            rng, 21, 30, ((1, 1),) * 3, [([0, 1, 2], 0, 0, 0, 0), ([0, 1, 2], 1, 5, 0, 0)]),
         "truncated": base[:len(base) // 2],
         "EOI": base[:-2],
     }
-    buf = io.BytesIO()
-    Image.fromarray(img).convert("CMYK").save(buf, "JPEG")
-    cases["CMYK"] = buf.getvalue()
+    cases["over 3 components"] = cases.pop("AC scan over 3 components")
     for match, data in cases.items():
         assert data != base
         for route in jpeg.ROUTES:
             with pytest.raises(ValueError, match=match):
                 jpeg.decode_jpeg(data, route=route)
-    for name in ("A14.7.1", "CMYK", "sampling factors 4x1"):  # headers still read
-        assert jpeg.jpeg_size(cases[name]) == Image.open(io.BytesIO(cases[name])).size
-    for data in (cases["truncated"], cases["EOI"]):
+        if match == "arithmetic":
+            continue
         with pytest.raises(OSError):
             _pil(data)
         assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+    assert jpeg.jpeg_size(cases["whole ratios"]) == (30, 21)
     with pytest.raises(ValueError, match="route"):
         jpeg.decode_jpeg(base, route="tf")
 
@@ -501,8 +848,10 @@ def test_bmp_layouts_equal_both_routes(case):
 
 def test_bmp_cases_that_raise():
     px = np.zeros((4, 4), np.int64)
-    for match, data in (("RLE", _bmp(px, 8, palette=np.zeros((256, 3)), compression=1)),
-                        ("RLE", _bmp(px, 4, palette=np.zeros((16, 3)), compression=2)),
+    rle8 = _bmp(px, 8, palette=np.zeros((256, 3)), compression=1)
+    for match, data in (("ends before", rle8[:-16] + b"\x04\x01"),
+                        ("BI_RLE8 BMP at 4 bits", _bmp(px, 4, palette=np.zeros((16, 3)),
+                                                       compression=1)),
                         ("bitfields", _bmp(px, 16, compression=3, masks=(0xF00, 0xF0, 0xF))),
                         ("truncated", _bmp(px[..., None].repeat(3, 2), 24)[:-10])):
         for route in bmp.ROUTES:
@@ -513,7 +862,8 @@ def test_bmp_cases_that_raise():
 def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
     """read_image_bgr decodes by content whatever the extension (a PNG
     named .jpg, a JPEG named .png), as PIL does; image_size reads each
-    format's header as PIL's .size; other formats raise."""
+    format's header as PIL's .size; a TIFF page reads; other formats
+    raise."""
     img = _image((21, 34), 11)
     files = {"png.jpg": None, "jpeg.png": _pil_jpeg(img, quality=85),
              "bmp.dat": _pil_bmp(img, "RGB")}
@@ -526,29 +876,45 @@ def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
         assert got.dtype == np.float32 and np.array_equal(got, want), name
         assert image_size(tmp_path / name) == Image.open(tmp_path / name).size == (34, 21)
     Image.fromarray(img).save(tmp_path / "page.gif")
-    Image.fromarray(img).save(tmp_path / "page.tif")
     for fn in (read_image_bgr, image_size):
         with pytest.raises(ValueError, match="JPEG"):
             fn(tmp_path / "page.gif")
-    with pytest.raises(ValueError, match="A14.10"):
-        read_image_bgr(tmp_path / "page.tif")
+    Image.fromarray(img).save(tmp_path / "page.tif")  # TIFF: data/tiff.py
+    want = np.asarray(Image.open(tmp_path / "page.tif").convert("RGB"))[:, :, ::-1]
+    np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.tif"), want)
+    assert image_size(tmp_path / "page.tif") == (34, 21)
 
 
 def test_no_fallback_decoder(tmp_path):
     """With PIL, cv2, jax and tdnet poisoned in sys.modules, read_image_bgr
-    still decodes a JPEG and a BMP, to the pixels PIL gives here."""
+    still decodes a JPEG (sequential and progressive), a BMP (raw and
+    RLE8) and TIFF pages (LZW with a predictor, CCITT G4, JPEG), to the
+    pixels PIL gives here."""
     img = _image((30, 41), 12)
-    (tmp_path / "a.jpg").write_bytes(_pil_jpeg(img, quality=90, subsampling=2))
-    (tmp_path / "b.bmp").write_bytes(_pil_bmp(img, "RGB"))
-    for name in ("a.jpg", "b.bmp"):
-        np.save(tmp_path / (name + ".npy"), _pil((tmp_path / name).read_bytes())[:, :, ::-1])
+    page = Image.fromarray(img)
+    rle = bytes([3, 1, 3, 2, 0, 0, 2, 3, 4, 0, 0, 0, 6, 1, 0, 0, 0, 1])
+    files = {
+        "a.jpg": _pil_jpeg(img, quality=90, subsampling=2),
+        "p.jpg": _pil_jpeg(img, quality=90, progressive=True),
+        "b.bmp": _pil_bmp(img, "RGB"),
+        "r.bmp": _bmp(np.zeros((3, 6), np.int64), 8, palette=np.arange(12).reshape(4, 3) * 20,
+                      compression=1)[:-24] + rle,
+    }
+    for name, kw in (("l.tif", dict(compression="tiff_lzw", tiffinfo={317: 2})),
+                     ("g.tif", dict(compression="group4")), ("j.tif", dict(compression="jpeg"))):
+        buf = io.BytesIO()
+        (page.convert("1") if name == "g.tif" else page).save(buf, "TIFF", **kw)
+        files[name] = buf.getvalue()
+    for name, data in files.items():
+        (tmp_path / name).write_bytes(data)
+        np.save(tmp_path / (name + ".npy"), _pil(data)[:, :, ::-1])
     code = f"""
 import sys
 for name in ("PIL", "PIL.Image", "cv2", "jax", "jaxlib", "tdnet"):
     sys.modules[name] = None
 import numpy as np
 from tdnet_torch.data.image import read_image_bgr
-for name in ("a.jpg", "b.bmp"):
+for name in {sorted(files)!r}:
     got = read_image_bgr({str(tmp_path)!r} + "/" + name)
     want = np.load({str(tmp_path)!r} + "/" + name + ".npy")
     assert np.array_equal(got, want), name

@@ -1,0 +1,457 @@
+"""tdnet_torch.data.tiff against the reference's two decoders: each case
+byte-equal to PIL's ``Image.open(...).convert("RGB")`` on the ``pil``
+route (files, ``tdnet/data/image.py``) and to ``cv2.imdecode(...,
+IMREAD_COLOR)[:, :, ::-1]`` on the ``cv2`` route (serve bodies,
+``tdnet/bin/serve.py``). The files come from PIL's and cv2's TIFF writers
+(libtiff) and, for the layouts they do not write (big-endian, tiles,
+planar, bit depths, FillOrder), from a writer of the test's own."""
+
+import io
+import struct
+import zlib
+
+import cv2
+import numpy as np
+import pytest
+from PIL import Image
+
+from tdnet_torch.data import tiff
+from tdnet_torch.data.image import image_size, read_image_bgr
+
+
+def _image(shape, seed, channels=3):
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, shape + (channels,), dtype=np.uint8)
+    if min(shape) >= 5:
+        img = cv2.GaussianBlur(img, (5, 5), 0).reshape(img.shape)
+    return img
+
+
+def _pil(data: bytes) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def _cv2(data: bytes):
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return None if bgr is None else bgr[:, :, ::-1]
+
+
+def _assert_both_routes(data: bytes):
+    for route, oracle in (("pil", _pil), ("cv2", _cv2)):
+        got, want = tiff.decode_tiff(data, route=route), oracle(data)
+        assert want is not None, route
+        assert got.dtype == np.uint8 and got.shape == want.shape, (route, got.shape, want.shape)
+        if not np.array_equal(got, want):
+            diff = np.argwhere(got != want)
+            pytest.fail(f"{route}: {len(diff)} samples differ, first at {diff[0].tolist()}")
+    assert tiff.tiff_size(data) == Image.open(io.BytesIO(data)).size
+
+
+def _pil_tiff(im: Image.Image, **kw) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+# --- a TIFF writer of the test's own
+
+
+class _BitWriter:
+    def __init__(self):
+        self.value, self.n = 0, 0
+
+    def put(self, code, bits):
+        self.value, self.n = (self.value << bits) | code, self.n + bits
+
+    def bytes(self) -> bytes:
+        pad = -self.n % 8
+        return (self.value << pad).to_bytes((self.n + pad) // 8, "big")
+
+
+def _lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW, as libtiff writes it: a clear code first, 9 to 12 bits,
+    the width growing when the next free code reaches a power of two."""
+    out, width = _BitWriter(), 9
+    table = {bytes([i]): i for i in range(256)}
+    nxt = 258
+    out.put(256, width)
+    w = b""
+    for byte in data:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        out.put(table[w], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 1 << width and width < 12:
+            width += 1
+        if nxt == 4094:
+            out.put(256, width)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        w = bytes([byte])
+    if w:
+        out.put(table[w], width)
+        nxt += 1
+        if nxt == 1 << width and width < 12:
+            width += 1
+    out.put(257, width)
+    return out.bytes()
+
+
+def _packbits_encode(data: bytes) -> bytes:
+    out, i = bytearray(), 0
+    while i < len(data):
+        run = 1
+        while i + run < len(data) and run < 128 and data[i + run] == data[i]:
+            run += 1
+        if run >= 3:
+            out += bytes([257 - run, data[i]])
+            i += run
+            continue
+        j = i
+        while j < len(data) and j - i < 128 and not (
+                j + 2 < len(data) and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+_REV = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def _pack_rows(block: np.ndarray, bits: int, end: str) -> bytes:
+    """(rows, cols, spp) samples -> packed rows, each padded to a byte."""
+    rows, cols, spp = block.shape
+    flat = block.reshape(rows, cols * spp)
+    if bits == 8:
+        return flat.astype(np.uint8).tobytes()
+    if bits == 16:
+        return flat.astype(end + "u2").tobytes()
+    bitplanes = ((flat[:, :, None] >> np.arange(bits - 1, -1, -1)) & 1).reshape(rows, -1)
+    return np.packbits(bitplanes.astype(np.uint8), axis=1).tobytes()
+
+
+def _tiff(samples, bits=8, photometric=2, *, compression=1, big_endian=False, tile=None,
+          planar=1, rows_per_strip=None, predictor=1, fill_order=1, tags=None) -> bytes:
+    """A one-page TIFF of (H, W, spp) samples. ``tile``: (width, length);
+    ``tags``: more fields, tag -> (type, values)."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[:, :, None]
+    h, w, spp = samples.shape
+    end = ">" if big_endian else "<"
+    planes = [samples[:, :, i:i + 1] for i in range(spp)] if planar == 2 else [samples]
+    if tile:
+        cw, ch = tile
+    else:
+        cw, ch = w, rows_per_strip or h
+    chunks = []
+    for plane in planes:
+        for y0 in range(0, h, ch):
+            for x0 in range(0, w, cw):
+                rows = ch if tile else min(ch, h - y0)
+                block = np.zeros((rows, cw, plane.shape[2]), np.int64)
+                part = plane[y0:y0 + rows, x0:x0 + cw]
+                block[:part.shape[0], :part.shape[1]] = part
+                if predictor == 2:
+                    block[:, 1:] = (block[:, 1:] - block[:, :-1]) % (1 << bits)
+                raw = _pack_rows(block, bits, end)
+                if compression == 5:
+                    raw = _lzw_encode(raw)
+                elif compression == 8:
+                    raw = zlib.compress(raw)
+                elif compression == 32773:
+                    raw = _packbits_encode(raw)
+                if fill_order == 2:
+                    raw = raw.translate(_REV)
+                chunks.append(raw)
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+              262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if predictor != 1:
+        fields[317] = (3, [predictor])
+    if fill_order != 1:
+        fields[266] = (3, [fill_order])
+    if tile:
+        fields[322], fields[323] = (3, [cw]), (3, [ch])
+    else:
+        fields[278] = (3, [ch])
+    fields.update(tags or {})
+    codes = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B"}
+    # layout: header, chunk data, then out-of-line values, then the IFD
+    body = bytearray(8)
+    offsets = []
+    for c in chunks:
+        offsets.append(len(body))
+        body += c + bytes(len(c) & 1)
+    fields[324 if tile else 273] = (4, offsets)
+    fields[325 if tile else 279] = (4, [len(c) for c in chunks])
+    entries = []
+    for tag in sorted(fields):
+        kind, values = fields[tag]
+        raw = values if isinstance(values, bytes) else struct.pack(
+            f"{end}{len(values)}{codes[kind]}", *values)
+        count = len(raw) // struct.calcsize(codes[kind])
+        if len(raw) <= 4:
+            entries.append(struct.pack(end + "HHI", tag, kind, count) + raw.ljust(4, b"\0"))
+        else:
+            at = len(body)
+            body += raw + bytes(len(raw) & 1)
+            entries.append(struct.pack(end + "HHII", tag, kind, count, at))
+    ifd = len(body)
+    body += struct.pack(end + "H", len(entries)) + b"".join(entries) + bytes(4)
+    body[:8] = (b"MM" if big_endian else b"II") + struct.pack(end + "HI", 42, ifd)
+    return bytes(body)
+
+
+def _jpeg_tiff(strips, h, w, photometric=6, subsampling=(2, 2), rows_per_strip=None,
+               tables=None) -> bytes:
+    """A JPEG-compressed TIFF of the given JPEG streams, one a strip (PIL
+    writes YCbCr without subsampling only)."""
+    offsets, body = [], bytearray(8)
+    for s in strips:
+        offsets.append(len(body))
+        body += s + bytes(len(s) & 1)
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]), 259: (3, [7]),
+              262: (3, [photometric]), 273: (4, offsets), 277: (3, [3]),
+              278: (3, [rows_per_strip or h]), 279: (4, [len(s) for s in strips]),
+              284: (3, [1]), 530: (3, list(subsampling))}
+    if tables:
+        fields[347] = (7, tables)
+    entries = []
+    for tag in sorted(fields):
+        kind, values = fields[tag]
+        raw = values if isinstance(values, bytes) else struct.pack(
+            f"<{len(values)}{'HI'[kind == 4]}", *values)
+        count = len(raw) // (1 if kind == 7 else 2 if kind == 3 else 4)
+        if len(raw) <= 4:
+            entries.append(struct.pack("<HHI", tag, kind, count) + raw.ljust(4, b"\0"))
+        else:
+            entries.append(struct.pack("<HHII", tag, kind, count, len(body)))
+            body += raw + bytes(len(raw) & 1)
+    ifd = len(body)
+    body += struct.pack("<H", len(entries)) + b"".join(entries) + bytes(4)
+    body[:8] = b"II" + struct.pack("<HI", 42, ifd)
+    return bytes(body)
+
+
+PIL_MODES = ["RGB", "L", "1", "P", "CMYK", "RGBA", "LA", "I;16"]
+PIL_COMPRESSIONS = ["raw", "packbits", "tiff_lzw", "tiff_adobe_deflate"]
+
+
+def _pil_page(mode: str, shape, seed) -> Image.Image:
+    img = _image(shape, seed)
+    rng = np.random.default_rng(seed)
+    if mode == "I;16":  # above 255 mostly: PIL clips, cv2 keeps the high byte
+        return Image.fromarray((img[..., 0].astype(np.uint16) * 257
+                                - rng.integers(0, 200, shape)).astype(np.uint16))
+    alpha = rng.integers(0, 256, shape, dtype=np.uint8)
+    if mode == "RGBA":  # cv2 premultiplies RGB by it
+        return Image.fromarray(np.dstack([img, alpha]), "RGBA")
+    if mode == "LA":
+        return Image.fromarray(np.dstack([img[..., 0], alpha]), "LA")
+    return Image.fromarray(img).convert(mode)
+
+
+@pytest.mark.parametrize("compression", PIL_COMPRESSIONS)
+@pytest.mark.parametrize("mode", PIL_MODES)
+def test_tiff_pil_modes_and_compressions_equal_both_routes(mode, compression):
+    """Every mode PIL writes, in each compression it writes through
+    libtiff, at sizes from 1x1 up: gray, bilevel, palette, RGB, CMYK,
+    alpha (dropped; cv2 premultiplies RGB by it), 16-bit gray (where the
+    routes part by up to 196)."""
+    for shape in ((1, 1), (40, 57)):
+        data = _pil_tiff(_pil_page(mode, shape, len(mode)), compression=compression)
+        _assert_both_routes(data)
+    if mode == "I;16":
+        routes = [tiff.decode_tiff(data, r).astype(int) for r in tiff.ROUTES]
+        assert np.abs(routes[0] - routes[1]).max() > 150
+
+
+@pytest.mark.parametrize("case", ["RGB", "L", "YCbCr", "cv2"])
+def test_tiff_jpeg_compression_equal_both_routes(case):
+    """JPEG-compressed TIFF (code 7) with its JPEGTables: RGB and gray
+    (no colour conversion) and YCbCr as PIL writes them, RGB as cv2
+    writes it."""
+    img = _image((40, 57), 4)
+    if case == "cv2":
+        ok, enc = cv2.imencode(".tiff", img[:, :, ::-1], [cv2.IMWRITE_TIFF_COMPRESSION, 7])
+        data = enc.tobytes()
+    else:
+        data = _pil_tiff(Image.fromarray(img).convert(case), compression="jpeg")
+    assert 347 in Image.open(io.BytesIO(data)).tag_v2
+    _assert_both_routes(data)
+
+
+@pytest.mark.parametrize("subsampling", [(2, 2), (2, 1), (1, 1)], ids=["420", "422", "444"])
+def test_tiff_jpeg_ycbcr_subsampled_strips(subsampling):
+    """YCbCr JPEG strips subsampled (which no encoder here writes into a
+    TIFF): libjpeg's fancy upsampling, strip by strip, by both routes."""
+    img = _image((40, 57), 5)
+    sub = {(2, 2): 2, (2, 1): 1, (1, 1): 0}[subsampling]
+
+    def jpg(part):
+        buf = io.BytesIO()
+        Image.fromarray(part).save(buf, "JPEG", quality=85, subsampling=sub)
+        return buf.getvalue()
+
+    _assert_both_routes(_jpeg_tiff([jpg(img)], 40, 57, subsampling=subsampling))
+    strips = [jpg(img[y:y + 16]) for y in range(0, 40, 16)]
+    _assert_both_routes(_jpeg_tiff(strips, 40, 57, subsampling=subsampling, rows_per_strip=16))
+
+
+@pytest.mark.parametrize("compression", ["group3", "group4"])
+def test_tiff_ccitt_equal_both_routes(compression):
+    """CCITT Group 3 (one-dimensional; two-dimensional with T4Options bit 0;
+    byte-aligned ends of line, bit 2) and Group 4, FillOrder 1 and 2."""
+    page = Image.fromarray(_image((61, 83), 6)).convert("1")
+    for info in ({}, {292: 1}, {292: 5}, {266: 2}, {266: 2, 292: 1}):
+        data = _pil_tiff(page, compression=compression, tiffinfo=info)
+        tags = Image.open(io.BytesIO(data)).tag_v2
+        assert tags[259] == (3 if compression == "group3" else 4)
+        _assert_both_routes(data)
+
+
+def test_tiff_lzw_predictor_orientation_and_pages():
+    """LZW with Predictor 2 (PIL, and cv2's own writer), Orientation 1-8
+    (both routes turn the page; PIL's .size and image_size report the
+    turned size), a file of two pages (both read the first)."""
+    img = _image((40, 57), 7)
+    page = Image.fromarray(img)
+    _assert_both_routes(_pil_tiff(page, compression="tiff_lzw", tiffinfo={317: 2}))
+    ok, enc = cv2.imencode(".tiff", img[:, :, ::-1])
+    assert Image.open(io.BytesIO(enc.tobytes())).tag_v2[317] == 2
+    _assert_both_routes(enc.tobytes())
+    for orientation in range(1, 9):
+        data = _pil_tiff(page, compression="tiff_lzw", tiffinfo={274: orientation})
+        _assert_both_routes(data)
+        turned = orientation >= 5
+        assert tiff.tiff_size(data) == ((40, 57) if turned else (57, 40))
+    data = _pil_tiff(page, save_all=True, append_images=[page.convert("L").rotate(90)],
+                     compression="tiff_lzw")
+    assert getattr(Image.open(io.BytesIO(data)), "n_frames", 1) == 2
+    _assert_both_routes(data)
+
+
+LAYOUTS = {  # name: _tiff arguments; sample values fit their bits
+    "big_endian": dict(big_endian=True, rows_per_strip=7),
+    "tiled": dict(tile=(16, 32)),
+    "tiled_big_endian": dict(tile=(32, 16), big_endian=True),
+    "tiled_uncompressed": dict(tile=(32, 32), compression=1),
+    "planar": dict(planar=2, rows_per_strip=9),
+    "planar_tiled_big_endian": dict(planar=2, tile=(16, 16), big_endian=True),
+    "predictor_big_endian": dict(predictor=2, big_endian=True, rows_per_strip=11),
+    "packbits_big_endian": dict(compression=32773, big_endian=True),
+    "deflate_planar": dict(compression=8, planar=2),
+    "rgb16_predictor": dict(bits=16, predictor=2),
+    "rgb16_big_endian_planar": dict(bits=16, big_endian=True, planar=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUTS))
+def test_tiff_layouts_equal_both_routes(case):
+    """Layouts PIL does not write, from the test's own writer (LZW unless
+    named): big-endian files, tiles (cropped at the page's edges), planar
+    samples, Predictor 2 at 8 and 16 bits, 16-bit RGB (PIL keeps the high
+    byte, cv2 rounds)."""
+    kw = dict(LAYOUTS[case])
+    kw.setdefault("compression", 5)
+    bits = kw.pop("bits", 8)
+    img = _image((40, 57), len(case)).astype(np.int64)
+    if bits == 16:
+        img = img * 257 + np.random.default_rng(0).integers(0, 257, img.shape)
+    _assert_both_routes(_tiff(img, bits, 2, **kw))
+
+
+GRAYS = {  # name: (bits, photometric, more fields)
+    "gray1": (1, 1, {}), "white1": (1, 0, {}), "gray8": (8, 1, {}), "white8": (8, 0, {}),
+    "gray16_big_endian": (16, 1, {}), "white16": (16, 0, {}),
+    "palette1": (1, 3, {}), "palette4": (4, 3, {}), "palette8": (8, 3, {}),
+    "palette4_8bit_colormap": (4, 3, {"cmap8": True}),
+    "gray2": (2, 1, {}), "white4": (4, 0, {}), "palette2": (2, 3, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAYS))
+def test_tiff_bit_depths_and_photometrics(case):
+    """Gray and palette pages at 1 to 16 bits, min-is-white and
+    min-is-black, a 16-bit colormap and one whose entries all lie below
+    256 (cv2, through libtiff, takes it for 8-bit). cv2 reads 2-bit pages
+    and 4-bit gray not at all, and the port's cv2 route raises on them."""
+    bits, photometric, more = GRAYS[case]
+    rng = np.random.default_rng(len(case))
+    samples = rng.integers(0, 1 << bits, (23, 37))
+    tags = {}
+    if photometric == 3:
+        top = 256 if more.get("cmap8") else 65536
+        tags[320] = (3, [int(v) for v in rng.integers(0, top, 3 << bits)])
+    data = _tiff(samples, bits, photometric, compression=8, big_endian="big" in case, tags=tags)
+    if bits == 2 or case == "white4":
+        np.testing.assert_array_equal(tiff.decode_tiff(data, "pil"), _pil(data))
+        assert _cv2(data) is None
+        with pytest.raises(ValueError, match="cv2 reads"):
+            tiff.decode_tiff(data, "cv2")
+        return
+    _assert_both_routes(data)
+
+
+def test_tiff_cmyk16_alpha_and_fill_order():
+    """16-bit CMYK (PIL's high bytes; cv2 fails, and its route raises),
+    associated alpha (PIL divides it out, cv2 drops it), 16-bit RGBA
+    (cv2 premultiplies the rounded samples), extra samples of no kind
+    (dropped), FillOrder 2 on uncompressed 8-bit and 1-bit pages."""
+    rng = np.random.default_rng(8)
+    cmyk = _tiff(rng.integers(0, 65536, (9, 11, 4)), 16, 5)
+    np.testing.assert_array_equal(tiff.decode_tiff(cmyk, "pil"), _pil(cmyk))
+    assert _cv2(cmyk) is None
+    with pytest.raises(ValueError, match="16-bit CMYK"):
+        tiff.decode_tiff(cmyk, "cv2")
+    rgba = rng.integers(0, 256, (9, 11, 4))
+    rgba[..., :3] = np.minimum(rgba[..., :3], rgba[..., 3:])
+    _assert_both_routes(_tiff(rgba, 8, 2, tags={338: (3, [1])}))
+    _assert_both_routes(_tiff(rng.integers(0, 65536, (9, 11, 4)), 16, 2, tags={338: (3, [2])}))
+    _assert_both_routes(_tiff(rng.integers(0, 256, (9, 11, 4)), 8, 2, tags={338: (3, [0])}))
+    _assert_both_routes(_tiff(rng.integers(0, 256, (9, 11)), 8, 1, fill_order=2))
+    _assert_both_routes(_tiff(rng.integers(0, 2, (9, 11)), 1, 0, fill_order=2))
+
+
+def test_tiff_cases_that_raise():
+    """What the port does not read raises on both routes with a message
+    that names it."""
+    img = _image((12, 16), 9)
+    page = Image.fromarray(img)
+    cases = {
+        "old-style JPEG": _tiff(img, compression=6),
+        "CCITT modified Huffman RLE": _pil_tiff(page.convert("1"), compression="tiff_ccitt"),
+        "Zstandard": _tiff(img, compression=50000),
+        "YCbCr TIFF is read inside JPEG": _pil_tiff(page.convert("YCbCr"),
+                                                    compression="tiff_lzw"),
+        "CIE L\\*a\\*b\\*": _tiff(img, photometric=8),
+        "Predictor 3": _tiff(img, compression=5, predictor=3),
+        "sample format": _tiff(img, tags={339: (3, [3, 3, 3])}),
+        "at 32 bits": _tiff(img.astype(np.int64), 32, 2),
+        "BigTIFF": b"II+\x00" + bytes(12),
+        "truncated": _tiff(img)[:100] + _tiff(img)[-200:],
+        "fewer strip": _tiff(img, rows_per_strip=4, tags={278: (3, [2])}),
+    }
+    for match, data in cases.items():
+        for route in tiff.ROUTES:
+            with pytest.raises(ValueError, match=match):
+                tiff.decode_tiff(data, route=route)
+    with pytest.raises(ValueError, match="route"):
+        tiff.decode_tiff(_tiff(img), route="tf")
+
+
+def test_tiff_through_read_image_and_image_size(tmp_path):
+    """read_image_bgr and image_size take TIFF pages by their content, as
+    PIL does, the turned size of an Orientation 6 page included."""
+    img = _image((21, 34), 10)
+    for name, info in (("a.tif", {}), ("b.tiff", {274: 6}), ("c.dat", {317: 2})):
+        path = tmp_path / name
+        path.write_bytes(_pil_tiff(Image.fromarray(img), compression="tiff_lzw", tiffinfo=info))
+        want = np.asarray(Image.open(path).convert("RGB"))[:, :, ::-1]
+        np.testing.assert_array_equal(read_image_bgr(path), want)
+        assert image_size(path) == Image.open(path).size
+    assert image_size(tmp_path / "b.tiff") == (21, 34)

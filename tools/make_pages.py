@@ -1,0 +1,140 @@
+"""Regenerate tests/golden/pages/: full-size (1100x850) table pages in the
+formats the port reads beyond sequential JPEG, and ``digests.json``, which
+holds for each file the SHA-256 of the two reference decodes the port must
+equal byte for byte (as tools/make_jpeg_pages.py does for tests/golden/jpeg):
+
+- ``pil_rgb_sha256``: ``np.asarray(Image.open(path).convert("RGB"))``
+  (the reference's file route, ``tdnet/data/image.py``);
+- ``cv2_bgr_sha256``: ``cv2.imdecode(buf, cv2.IMREAD_COLOR)`` (the
+  reference's serve-body route, ``tdnet/bin/serve.py``);
+
+with each file's size (as PIL's ``.size``) and the table boxes drawn. The
+pages come from tools/make_jpeg_pages.py's ``table_page`` with seed 8:
+
+- ``prog_pil.jpg``: progressive JPEG, 4:2:0, quality 90 (PIL);
+- ``prog_cv2.jpg``: progressive JPEG, 4:2:0, quality 85 (cv2);
+- ``cmyk.jpg``: CMYK JPEG (Adobe, inverted), quality 85 (PIL); the routes
+  differ by 1 (each has its own CMYK rule);
+- ``sub411.jpg``: 4:1:1 JPEG, quality 90 (cv2);
+- ``rle8.bmp``: 8-bit palette BMP with BI_RLE8 (an encoder of this tool's
+  own: neither PIL nor cv2 writes RLE), the page's colours as its palette;
+- ``g4.tif``: the page thresholded to bilevel, CCITT Group 4 (PIL);
+- ``lzw_pred.tif``: RGB, LZW with Predictor 2 (PIL);
+- ``jpeg_ycc.tif``: YCbCr, JPEG compression with JPEGTables (PIL).
+
+The GPU machine has neither PIL nor cv2, so the files are made here and
+committed. Run from the repo root:  python tools/make_pages.py
+"""
+
+import hashlib
+import io
+import json
+import os
+import sys
+
+import cv2
+import numpy as np
+from PIL import Image
+
+sys.path.insert(0, os.path.dirname(__file__))
+from make_jpeg_pages import LANDSCAPE, table_page  # noqa: E402
+
+OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "golden", "pages")
+SEED = 8  # the first seed whose eight pages table_page draws without an empty range
+
+
+def pil_bytes(im: Image.Image, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def cv2_jpeg(rgb, *params) -> bytes:
+    ok, enc = cv2.imencode(".jpg", np.ascontiguousarray(rgb[:, :, ::-1]), list(params))
+    assert ok
+    return enc.tobytes()
+
+
+def rle8_bmp(rgb) -> bytes:
+    """An 8-bit BI_RLE8 BMP of a page of at most 256 colours: encoded runs
+    of 3 or more pixels, absolute runs (padded to 16 bits) between them, an
+    end of line after each row and an end of bitmap after the last."""
+    h, w = rgb.shape[:2]
+    colours, index = np.unique(rgb.reshape(-1, 3), axis=0, return_inverse=True)
+    assert len(colours) <= 256, f"{len(colours)} colours"
+    index = index.reshape(h, w).astype(np.uint8)
+    stream = bytearray()
+    for r, row in enumerate(index[::-1]):
+        row, x = row.tolist(), 0
+        while x < w:
+            run = 1
+            while x + run < w and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3:
+                stream += bytes([run, row[x]])
+                x += run
+                continue
+            end = x
+            while end < w and end - x < 255 and not (
+                    end + 2 < w and row[end] == row[end + 1] == row[end + 2]):
+                end += 1
+            if end - x < 3:
+                stream += b"".join(bytes([1, v]) for v in row[x:end])
+            else:
+                stream += bytes([0, end - x]) + bytes(row[x:end]) + bytes((end - x) & 1)
+            x = end
+        stream += b"\x00\x01" if r == h - 1 else b"\x00\x00"
+    palette = b"".join(bytes([b, g, r, 0]) for r, g, b in colours)
+    offset = 14 + 40 + len(palette)
+    info = np.array([40, w, h], "<i4").tobytes() + np.array([1, 8], "<u2").tobytes() \
+        + np.array([1, len(stream), 2835, 2835, len(colours), 0], "<u4").tobytes()
+    return (b"BM" + np.array([offset + len(stream)], "<u4").tobytes() + bytes(4)
+            + np.array([offset], "<u4").tobytes() + info + palette + bytes(stream))
+
+
+def main():
+    rng = np.random.default_rng(SEED)
+    os.makedirs(OUT, exist_ok=True)
+    pages = [table_page(rng, LANDSCAPE) for _ in range(8)]
+    page = [Image.fromarray(p) for p, _ in pages]
+    bilevel = page[5].convert("L").point(lambda v: 255 if v > 160 else 0).convert("1")
+    files = {
+        "prog_pil.jpg": pil_bytes(page[0], "JPEG", quality=90, subsampling=2, progressive=True),
+        "prog_cv2.jpg": cv2_jpeg(pages[1][0], cv2.IMWRITE_JPEG_QUALITY, 85,
+                                 cv2.IMWRITE_JPEG_PROGRESSIVE, 1),
+        "cmyk.jpg": pil_bytes(page[2].convert("CMYK"), "JPEG", quality=85),
+        "sub411.jpg": cv2_jpeg(pages[3][0], cv2.IMWRITE_JPEG_QUALITY, 90,
+                               cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                               cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
+        "rle8.bmp": rle8_bmp(pages[4][0]),
+        "g4.tif": pil_bytes(bilevel, "TIFF", compression="group4"),
+        "lzw_pred.tif": pil_bytes(page[6], "TIFF", compression="tiff_lzw",
+                                  tiffinfo={317: 2}),
+        "jpeg_ycc.tif": pil_bytes(page[7].convert("YCbCr"), "TIFF", compression="jpeg"),
+    }
+    digests = {}
+    for (name, data), (_, boxes) in zip(files.items(), pages):
+        with open(os.path.join(OUT, name), "wb") as f:
+            f.write(data)
+        pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        assert bgr is not None, name
+        digests[name] = {
+            "bytes": len(data),
+            "size": list(Image.open(io.BytesIO(data)).size),
+            "cv2_shape": list(bgr.shape),
+            "pil_rgb_sha256": hashlib.sha256(pil.tobytes()).hexdigest(),
+            "cv2_bgr_sha256": hashlib.sha256(bgr.tobytes()).hexdigest(),
+            "routes_equal": bool(np.array_equal(pil, bgr[:, :, ::-1])),
+            "boxes": [[int(v) for v in b] for b in boxes],
+        }
+        print(name, len(data), "bytes", digests[name]["size"], bgr.shape,
+              "routes equal" if digests[name]["routes_equal"] else "routes differ")
+    with open(os.path.join(OUT, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1)
+        f.write("\n")
+    print("total", sum(d["bytes"] for d in digests.values()), "bytes")
+
+
+if __name__ == "__main__":
+    main()
