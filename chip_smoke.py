@@ -51,7 +51,12 @@ family):
 - the other page formats (``tests/golden/pages``: progressive, CMYK and
   4:1:1 JPEG, RLE8 BMP, CCITT G4, LZW and JPEG TIFF; both decode routes
   held to the references' digests) through ``train csv``, ``predict`` and
-  ``serve``.
+  ``serve``;
+- data parallelism: ``train --distributed`` in two child ranks (one card:
+  they share it over gloo; more: a card each over NCCL), plain and with
+  ``--zero`` (its bundle byte-equal to plain's), an f32 step against one
+  process at the same global batch, and ``evaluate --distributed --coco``
+  against one process; and a 1-rank NCCL group through the same CLIs.
 
 The fused 1x1 conv kernel (B7) is wired into no model, so only the kernel
 check runs it.
@@ -168,6 +173,11 @@ DATASET_BATCH, DATASET_STEPS = 2, 2
 GOLDEN_PAGES = ROOT / "tests" / "golden" / "pages"
 PAGES_BATCH, PAGES_STEPS = 2, 2
 PAGES_MATCH_PX = 0.005  # the 2-decimal rounding of a JSON box
+# the distributed phase: DIST_RANKS ranks through the train CLI at batch
+# DIST_BATCH a rank for DIST_STEPS steps (one pass over DIST_PAGES pages)
+DIST_RANKS, DIST_BATCH, DIST_STEPS, DIST_PAGES = 2, 2, 2, 8
+DIST_NORMALIZE_BACKBONE = "mobilenet"  # a family that takes the normalize kernel
+DIST_EVAL_GT = 3  # GT boxes a golden page: the model's own best (phase_distributed)
 R101_SIDE, R101_PAGE, R101_PAGES = 1024, (1100, 1000), 16  # -> 1024x931, bucket 1024^2
 # the backbones phase: one RetinaNet of each other family, full width and
 # depth; CUDA-vs-CPU parity at 512x512 (pages of R101's parity), 2 bf16 train
@@ -1705,31 +1715,22 @@ def phase_train_cli(dev):
     full, resumed = work / "full", work / "resumed"
     counters = {**_all_counters(), "stem_bwd": stem.BWD_LAUNCHES}
     log = io.StringIO()
-    prev = (torch.are_deterministic_algorithms_enabled(),
-            torch.is_deterministic_algorithms_warn_only_enabled(),
-            torch.backends.cudnn.deterministic)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic = True
-    try:
-        with warnings.catch_warnings(record=True) as caught, \
-                contextlib.redirect_stdout(log):
-            warnings.simplefilter("always")
-            for c in counters.values():
-                c.reset()
-            sync(dev)
-            t0 = time.monotonic()
-            rc = train.main(argv(full, "--evaluation", val=True))
-            sync(dev)
-            train_s = time.monotonic() - t0
-            launches = {k: c.count for k, c in counters.items()}
-            src = work / "epoch1" / str(steps_per_epoch)
-            shutil.copytree(full / "snapshots" / str(steps_per_epoch), src)
-            t0 = time.monotonic()
-            rc_resume = train.main(argv(resumed, "--snapshot", str(src.parent)))
-            resume_s = time.monotonic() - t0
-    finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
-        torch.backends.cudnn.deterministic = prev[2]
+    with _deterministic(), warnings.catch_warnings(record=True) as caught, \
+            contextlib.redirect_stdout(log):
+        warnings.simplefilter("always")
+        for c in counters.values():
+            c.reset()
+        sync(dev)
+        t0 = time.monotonic()
+        rc = train.main(argv(full, "--evaluation", val=True))
+        sync(dev)
+        train_s = time.monotonic() - t0
+        launches = {k: c.count for k, c in counters.items()}
+        src = work / "epoch1" / str(steps_per_epoch)
+        shutil.copytree(full / "snapshots" / str(steps_per_epoch), src)
+        t0 = time.monotonic()
+        rc_resume = train.main(argv(resumed, "--snapshot", str(src.parent)))
+        resume_s = time.monotonic() - t0
     out = log.getvalue().splitlines()
     require(rc == 0 and rc_resume == 0, f"exit codes {rc}, {rc_resume}: {out[-5:]}")
     require(launches["stem"] >= total_steps and launches["stem_bwd"] >= total_steps
@@ -3331,7 +3332,377 @@ def phase_pages(dev):
     return total
 
 
+def _cli_runs(dev, runs, said):
+    """(name, main, argv) runs in this process, in order, each with the
+    stem, stem_bwd, nms and ingest counters set to 0 just before it and
+    read just after; "distributed:" lines go to ``said``. A non-zero exit
+    fails."""
+    from tdnet_torch.ops import ingest, nms_kernel, stem
+
+    counters = {"ingest": ingest.LAUNCHES, "stem": stem.LAUNCHES,
+                "stem_bwd": stem.BWD_LAUNCHES, "nms": nms_kernel.LAUNCHES}
+    results = []
+    for name, main, argv in runs:
+        log = io.StringIO()
+        for c in counters.values():
+            c.reset()
+        sync(dev)
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(log):
+            rc = main(argv)
+        sync(dev)
+        out = log.getvalue().splitlines()
+        said += [x for x in out if x.startswith("distributed:")]
+        results.append({"name": name, "rc": rc, "seconds": time.monotonic() - t0,
+                        "launches": {k: c.count for k, c in counters.items()},
+                        "stdout": [x for x in out if not x.startswith("distributed:")][-40:]})
+        require(rc == 0, f"{name} exited {rc}: {out[-5:]}")
+    return results
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms and cuDNN's, as phase_train_cli
+    takes them: the bit-for-bit comparisons need them."""
+    import torch
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic = prev[2]
+
+
+def _one_rank_group(dev, runs):
+    """The runs in this process inside a 1-rank group made here by hand
+    (NCCL on the card, gloo on the CPU), destroyed after. The group is
+    synthetic: the port's ``initialize_distributed`` makes none for one
+    process, so this is how NCCL's path (the DDP reducer and the step's
+    all-reduces) runs on a machine with one card."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        said = [f"distributed: rank 0 of 1, backend {dist.get_backend()}"]
+        with _deterministic():
+            return {"backend": said, "runs": _cli_runs(dev, runs, said)}
+    finally:
+        dist.destroy_process_group()
+
+
+def _distributed_child(spec_path) -> int:
+    """One rank of the distributed phase (``chip_smoke.py
+    --distributed-child spec.json``): the spec's CLI runs in order in this
+    process (``_cli_runs``). Prints one ``DISTRIBUTED_CHILD`` JSON line; a
+    failure raises."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from tdnet_torch.bin import evaluate, train
+
+    spec = json.loads(Path(spec_path).read_text())
+    # as the parent (phase_device): full f32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    said = []
+    tools = {"train": train.main, "evaluate": evaluate.main}
+    with _deterministic():
+        results = _cli_runs(torch.device(spec["device"]),
+                            [(run["name"], tools[run["tool"]], run["argv"])
+                             for run in spec["runs"]], said)
+    print("DISTRIBUTED_CHILD " + json.dumps({"backend": said, "runs": results}), flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_children(work, name, specs, timeout=600):
+    """Start one child a spec (all together), wait for all, return their
+    results in order; any child that fails fails the phase, with its
+    output's tail."""
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    procs = []
+    for i, spec in enumerate(specs):
+        path = work / f"{name}{i}.json"
+        path.write_text(json.dumps(spec))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--distributed-child", str(path)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        lines = [x for x in out.splitlines() if x.startswith("DISTRIBUTED_CHILD ")]
+        require(p.returncode == 0 and lines,
+                f"{name} child {i} exited {p.returncode}:\n" + "\n".join(out.splitlines()[-30:]))
+        results.append(json.loads(lines[-1].split(" ", 1)[1]))
+    return results
+
+
+def _variables_leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _variables_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def phase_distributed(dev):
+    """Data parallelism through the train and evaluate CLIs, one process a
+    rank, ResNet-50 at full width and depth from a .tdn of smoke_variables,
+    DIST_PAGES synthetic PNG table pages at 800x1300 (bucket 800x1344),
+    ``--device-normalize`` (the fused stem and its backward kernel on every
+    rank):
+
+    - this process without a group, as a user runs one card: ``train`` bf16
+      at batch DIST_BATCH for DIST_STEPS steps (the one-rank step time),
+      ``train`` f32 at batch 2 x DIST_BATCH for one step, and ``evaluate
+      --coco`` on the 8 pages of tests/golden/pages (their GT: a direct
+      Predictor's DIST_EVAL_GT best boxes a page);
+    - this process in a synthetic 1-rank NCCL group (``_one_rank_group``),
+      so that NCCL's path runs on any card count: the f32 step again;
+    - then DIST_RANKS ranks with ``--distributed`` (one card: they share it
+      over gloo; more cards: a card each over NCCL): ``train`` bf16 at batch
+      DIST_BATCH a rank for DIST_STEPS steps, the same with ``--zero``,
+      ``train`` f32 one step, MobileNet (``DIST_NORMALIZE_BACKBONE``, random
+      weights) bf16 for DIST_STEPS steps, whose step takes the sharded
+      normalize kernel, and ``evaluate --distributed --coco``.
+
+    Held: ``--zero``'s bundle byte-equal to plain data parallelism's; the
+    2-rank f32 step, and the 1-rank NCCL one, against the plain step on the
+    same global batch (num_positive exact, loss rtol 1e-4, grad_norm rtol
+    1e-3, every weight moved by at most lr and at most 5% of them apart by
+    more than 1e-3 lr + 1e-7, as tests/test_torch_train.py holds the port
+    against the reference); the sharded evaluation's printed lines equal to
+    one process's; the stem and stem_bwd kernels launched on every rank for
+    every ResNet train step, the ingest kernel for every MobileNet step,
+    the NMS kernel on every rank's evaluation. Each run's counters are set
+    to 0 just before it and read just after, in its process."""
+    import numpy as np
+    import torch
+
+    from tdnet_torch.bin import evaluate, train
+    from tdnet_torch.data.image import read_image_bgr, write_image_bgr
+    from tdnet_torch.models.io import load_model, save_model
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.train.predictor import Predictor
+
+    t_phase = time.monotonic()
+    work = ROOT / "build" / "chip_smoke" / "distributed"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    pages, boxes = synthetic_pages(DIST_PAGES, 0, SEED + 17, sizes=(TRAIN_PAGE, None),
+                                   with_boxes=True)
+    rows = []
+    for i, (page, page_boxes) in enumerate(zip(pages, boxes)):
+        write_image_bgr(work / f"page{i}.png", page.astype(np.uint8))
+        rows += [f"page{i}.png,{int(b[0])},{int(b[1])},{int(b[2])},{int(b[3])},table"
+                 for b in page_boxes]
+    (work / "annotations.csv").write_text("\n".join(rows) + "\n")
+    (work / "classes.csv").write_text("table,0\n")
+    with torch.device("meta"):
+        record = RetinaNet(1)  # the model record save_model reads
+    init = smoke_variables()
+    save_model(str(work / "init.tdn"), record, init,
+               inference_config={"min_side": MIN_SIDE, "max_side": MAX_SIDE})
+    # the evaluation's GT: the model's own DIST_EVAL_GT best boxes a page
+    # (random weights reach no page's tables), so that the compared AP lines
+    # turn on every rank's detections and scores
+    golden = [GOLDEN_PAGES / n for n in sorted(json.loads(
+        (GOLDEN_PAGES / "digests.json").read_text()))]
+    model, variables, _ = load_model(str(work / "init.tdn"))
+    probe = Predictor(model, variables, device=dev, device_preprocess=True,
+                      min_side=MIN_SIDE, max_side=MAX_SIDE)
+    gt_rows = []
+    for path, (det_boxes, scores, _) in zip(golden, probe.predict_batch(
+            [read_image_bgr(p) for p in golden])):
+        for b in np.asarray(det_boxes)[np.argsort(-np.asarray(scores))][:DIST_EVAL_GT]:
+            x1, y1, x2, y2 = (int(round(float(v))) for v in b)
+            if x2 > x1 and y2 > y1:
+                gt_rows.append(f"{path},{x1},{y1},{x2},{y2},table\n")
+    (work / "golden.csv").write_text("".join(gt_rows))
+    del model, variables, probe
+
+    def train_argv(name, batch, steps, *extra):
+        return ["--device", dev.type, "--device-normalize", "--batch-size", str(batch),
+                "--steps", str(steps),
+                "--epochs", "1", "--log-every", "1", "--no-snapshots",
+                "--weights", str(work / "init.tdn"), "--seed", "3",
+                "--image-min-side", str(MIN_SIDE), "--image-max-side", str(MAX_SIDE),
+                "--metrics-path", str(work / f"{name}.jsonl"),
+                "--model-path", str(work / f"{name}.tdn"), *extra,
+                "csv", str(work / "annotations.csv"), str(work / "classes.csv")]
+
+    eval_argv = ["--device", dev.type, "--device-normalize", "--coco",
+                 "--image-min-side", str(MIN_SIDE),
+                 "--image-max-side", str(MAX_SIDE), "csv", str(work / "golden.csv"),
+                 str(work / "classes.csv"), str(work / "init.tdn")]
+    seconds = {"prep": time.monotonic() - t_phase}
+    t0 = time.monotonic()
+    said = []
+    with _deterministic():
+        one = {"backend": said, "runs": _cli_runs(dev, [
+            ("bf16", train.main, train_argv("one_bf16", DIST_BATCH, DIST_STEPS, "--bf16")),
+            ("f32", train.main, train_argv("one_f32", 2 * DIST_BATCH, 1)),
+            ("evaluate", evaluate.main, eval_argv)], said)}
+    require(not said, f"one process made a group: {said}")
+    seconds["one_process"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    nccl = _one_rank_group(dev, [("f32", train.main,
+                                  train_argv("nccl_f32", 2 * DIST_BATCH, 1))])
+    seconds["one_rank_group"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    spec = f"127.0.0.1:{_free_port()},{DIST_RANKS},"
+    ranks = _run_children(work, "rank", [{"device": dev.type, "runs": [
+        {"name": "bf16", "tool": "train",
+         "argv": train_argv("two_bf16", DIST_BATCH, DIST_STEPS, "--bf16",
+                            "--distributed", spec + str(r))},
+        {"name": "zero", "tool": "train",
+         "argv": train_argv("two_zero", DIST_BATCH, DIST_STEPS, "--bf16", "--zero",
+                            "--distributed", spec + str(r))},
+        {"name": "f32", "tool": "train",
+         "argv": train_argv("two_f32", DIST_BATCH, 1, "--distributed", spec + str(r))},
+        {"name": "mobilenet", "tool": "train",
+         "argv": ["--device", dev.type, "--device-normalize", "--bf16",
+                  "--backbone", DIST_NORMALIZE_BACKBONE, "--batch-size", str(DIST_BATCH),
+                  "--steps", str(DIST_STEPS), "--epochs", "1", "--log-every", "1",
+                  "--no-snapshots", "--seed", "3", "--image-min-side", str(MIN_SIDE),
+                  "--image-max-side", str(MAX_SIDE),
+                  "--metrics-path", str(work / "two_mobilenet.jsonl"),
+                  "--distributed", spec + str(r),
+                  "csv", str(work / "annotations.csv"), str(work / "classes.csv")]},
+        {"name": "evaluate", "tool": "evaluate",
+         "argv": ["--distributed", spec + str(r), *eval_argv]}]}
+        for r in range(DIST_RANKS)])
+
+    seconds["ranks"] = time.monotonic() - t0
+    backend = ("nccl" if dev.type == "cuda" and torch.cuda.device_count() >= DIST_RANKS
+               else "gloo")
+    require(nccl["backend"] == [f"distributed: rank 0 of 1, backend "
+                                f"{'nccl' if dev.type == 'cuda' else 'gloo'}"],
+            f"1-rank group: {nccl['backend']}")
+    for r, got in enumerate(ranks):
+        require(len(got["backend"]) == 1 and f"rank {r} of {DIST_RANKS}, backend {backend}"
+                in got["backend"][0], f"rank {r}: {got['backend']}")
+    # kernels on every rank
+    for who, got in ([("one", one), ("nccl", nccl)]
+                     + [(f"rank {r}", x) for r, x in enumerate(ranks)]):
+        for run in got["runs"]:
+            n = run["launches"]
+            if run["name"] == "evaluate":
+                require(n["nms"] >= 1 and n["stem"] >= 1, f"{who} {run['name']}: {n}")
+            elif run["name"] == "mobilenet":
+                require(n["ingest"] >= DIST_STEPS and n["stem"] == n["stem_bwd"] == 0,
+                        f"{who} {run['name']} skipped the normalize kernel: {n}")
+            else:
+                steps = 1 if run["name"] == "f32" else DIST_STEPS
+                require(n["stem"] >= steps and n["stem_bwd"] >= steps,
+                        f"{who} {run['name']} skipped a kernel: {n}")
+    # --zero is plain data parallelism, bit for bit
+    sha = {n: _sha256(np.frombuffer((work / f"{n}.tdn").read_bytes(), np.uint8))
+           for n in ("two_bf16", "two_zero")}
+    require(sha["two_bf16"] == sha["two_zero"], "--zero's bundle differs from plain DP's")
+    recs = {n: [json.loads(x) for x in (work / f"{n}.jsonl").read_text().splitlines()
+                if '"step"' in x] for n in ("one_bf16", "two_bf16", "two_zero", "one_f32",
+                                             "nccl_f32", "two_f32", "two_mobilenet")}
+    require(len(recs["two_mobilenet"]) == DIST_STEPS, f"mobilenet: {recs['two_mobilenet']}")
+    require(recs["two_zero"] == [dict(r, images_per_sec=z["images_per_sec"]) for r, z
+                                 in zip(recs["two_bf16"], recs["two_zero"])],
+            "--zero's metrics differ from plain DP's")
+    # the 2-rank and the 1-rank NCCL f32 steps against the plain one at the
+    # same global batch
+    lr = 1e-5
+    want = dict(_variables_leaves(load_model(str(work / "one_f32.tdn"))[1]["params"]))
+    before = dict(_variables_leaves(init["params"]))
+    m1 = recs["one_f32"][0]
+    f32 = {}
+    for name in ("two_f32", "nccl_f32"):
+        m2 = recs[name][0]
+        require(m1["num_positive"] == m2["num_positive"] > 0, f"num_positive {m1}, {m2}")
+        for k, rtol in (("loss", 1e-4), ("classification_loss", 1e-4),
+                        ("regression_loss", 1e-4), ("grad_norm", 1e-3)):
+            require(abs(m1[k] - m2[k]) <= rtol * abs(m1[k]),
+                    f"{name} {k}: plain {m1[k]}, {m2[k]}")
+        got = dict(_variables_leaves(load_model(str(work / f"{name}.tdn"))[1]["params"]))
+        n_params = n_apart = n_unequal = 0
+        worst_move = 0.0
+        for path, w in want.items():
+            moved_2, moved_1 = got[path] - before[path], w - before[path]
+            worst_move = max(worst_move, float(np.abs(moved_2).max()),
+                             float(np.abs(moved_1).max()))
+            n_apart += int((np.abs(moved_2 - moved_1) > 1e-3 * lr + 1e-7).sum())
+            n_unequal += int((got[path] != w).sum())
+            n_params += w.size
+        require(worst_move <= lr * (1 + 1e-3) + 1e-7, f"{name}: a weight moved {worst_move}")
+        require(n_apart <= 0.05 * n_params, f"{name}: {n_apart} of {n_params} weights apart")
+        f32[name] = {"metrics": m2, "weights_apart": n_apart, "weights_unequal": n_unequal,
+                     "weights": n_params}
+    # the sharded evaluation prints one process's lines
+    printed = [run["stdout"] for run in ranks[0]["runs"] if run["name"] == "evaluate"][0]
+    want_printed = [run["stdout"] for run in one["runs"] if run["name"] == "evaluate"][0]
+    require(printed == want_printed and any(x.startswith("mAP: ") and x != "mAP: 0.0000"
+                                            for x in printed),
+            f"2-rank evaluate printed {printed[-6:]}, 1 process {want_printed[-6:]}")
+    other = [run["stdout"] for run in ranks[1]["runs"] if run["name"] == "evaluate"][0]
+    require(not any(x.startswith("mAP") for x in other), f"rank 1 printed {other[-3:]}")
+
+    def step_seconds(name, batch):
+        return [batch / r["images_per_sec"] for r in recs[name]]
+
+    launches = {}
+    for got in [one, nccl] + ranks:
+        for run in got["runs"]:
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    for f in work.glob("*.tdn"):
+        f.unlink()  # 139 MiB each
+    emit({"phase": "distributed", "ok": True, "ranks": DIST_RANKS, "backend": backend,
+          "cards": torch.cuda.device_count(), "model": "resnet50 retinanet, 1 class",
+          "pages": DIST_PAGES, "batch_per_rank": DIST_BATCH, "steps": DIST_STEPS,
+          "step_seconds": {"one_rank_bf16": step_seconds("one_bf16", DIST_BATCH),
+                           "two_rank_bf16_rank0": step_seconds("two_bf16", DIST_BATCH),
+                           "two_rank_zero_rank0": step_seconds("two_zero", DIST_BATCH)},
+          "f32_step": {"one_process_batch": 2 * DIST_BATCH, "one": m1,
+                       "two_ranks": f32["two_f32"], "one_rank_nccl": f32["nccl_f32"]},
+          "mobilenet_two_ranks": recs["two_mobilenet"],
+          "zero": "bundle byte-equal to plain DP's, metrics equal",
+          "evaluate_printed": printed,
+          "seconds": {**seconds, "one": {r["name"]: r["seconds"] for r in one["runs"]},
+                      "nccl": {r["name"]: r["seconds"] for r in nccl["runs"]},
+                      **{f"rank{i}": {r["name"]: r["seconds"] for r in x["runs"]}
+                         for i, x in enumerate(ranks)}},
+          "launches": {"one": {r["name"]: r["launches"] for r in one["runs"]},
+                       "nccl": {r["name"]: r["launches"] for r in nccl["runs"]},
+                       **{f"rank{i}": {r["name"]: r["launches"] for r in x["runs"]}
+                          for i, x in enumerate(ranks)}},
+          "launches_total": launches,
+          "phase_seconds": time.monotonic() - t_phase})
+    return launches
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--distributed-child":
+        return _distributed_child(sys.argv[2])
     if not (ROOT / "tdnet_torch" / "__init__.py").is_file():
         print("chip_smoke: tdnet_torch/ is missing next to this script",
               file=sys.stderr)
@@ -3379,6 +3750,8 @@ def main() -> int:
         dataset_launches = phase_datasets(dev)
         phase = "pages"
         page_launches = phase_pages(dev)
+        phase = "distributed"
+        dist_launches = phase_distributed(dev)
     except Exception as exc:  # report the failed phase, print no result
         import traceback
 
@@ -3390,11 +3763,13 @@ def main() -> int:
     # train CLI and its initial-weight flags, config 5, config 4, the other
     # backbone families, serving, the CLIs, the table workflow, the JPEG and
     # BMP pages through the dataset CLIs, the other page formats through
-    # train, predict and serve); conv1x1 (B7) is wired into no model, in
+    # train, predict and serve, data parallelism through the train and
+    # evaluate CLIs in child ranks); conv1x1 (B7) is wired into no model, in
     # the JAX package too, so no path launches it
     runs = (launches, train_launches, train_cli_launches, init_launches,
             soft_launches, r101_launches, backbone_launches, serve_launches,
-            cli_launches, table_launches, dataset_launches, page_launches)
+            cli_launches, table_launches, dataset_launches, page_launches,
+            dist_launches)
     sources = {
         "ingest": ("tdnet_torch/csrc/ingest.cu", "tdnet/ops/pallas_ingest.py:137"),
         "stem": ("tdnet_torch/csrc/stem.cu", "tdnet/ops/pallas_stem.py:676"),

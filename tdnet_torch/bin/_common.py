@@ -1,6 +1,6 @@
 """Shared CLI plumbing, the counterpart of ``tdnet/bin/_common.py``: the
 dataset subcommands (``csv``, ``pascal``, ``coco``, ``kitti``,
-``open_images``) and the anchor config."""
+``open_images``), the anchor config and the ``--distributed`` flag."""
 
 from __future__ import annotations
 
@@ -14,10 +14,11 @@ from tdnet_torch.data.kitti import KittiDataset
 from tdnet_torch.data.open_images import OpenImagesDataset
 from tdnet_torch.data.pascal_voc import PascalVocDataset
 from tdnet_torch.ops.anchors import AnchorParameters
+from tdnet_torch.parallel.mesh import initialize_distributed
 from tdnet_torch.utils.config import parse_anchor_parameters, read_config_file
 
 __all__ = ["add_dataset_args", "make_dataset", "anchor_params_from_args",
-           "ensure_parent_dir"]
+           "ensure_parent_dir", "maybe_init_distributed"]
 
 # subcommand -> (help, root positional and its help, split options (name,
 # default, help))
@@ -92,3 +93,18 @@ def anchor_params_from_args(args) -> Optional[AnchorParameters]:
 
 def ensure_parent_dir(path: str) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+
+def maybe_init_distributed(spec, device) -> None:
+    """Parse --distributed 'coordinator:port,num_processes,process_id' and
+    join the process group on ``device`` (the reference's
+    ``_maybe_init_distributed``)."""
+    if not spec:
+        return
+    try:
+        coord, nproc, rank = spec.rsplit(",", 2)
+        nproc, rank = int(nproc), int(rank)
+    except ValueError as e:
+        raise SystemExit(f"--distributed expects 'coordinator:port,num_processes,"
+                         f"process_id', got {spec!r} ({e})")
+    initialize_distributed(coord, nproc, rank, device=device)

@@ -7,8 +7,10 @@ with ``--coco`` the 12-line COCO summary and the per-class COCO AP.
 ``model`` is a ``.tdn`` bundle, a checkpoint directory written by
 ``tdnet_torch/train/checkpoint.py`` or a keras-retinanet ``.h5`` (for
 these two, ``--backbone`` and the dataset's classes describe the
-architecture). Runs on CUDA unless ``--device cpu``. Not ported yet:
-``--distributed`` (A16), which raises.
+architecture). Runs on CUDA unless ``--device cpu``. With
+``--distributed coord:port,N,rank`` each of N ranks predicts its strided
+slice of the dataset and the detections are all-gathered: every rank holds
+the metrics of one process, and rank 0 prints them.
 """
 
 from __future__ import annotations
@@ -18,10 +20,13 @@ import os
 
 import torch
 
-from tdnet_torch.bin._common import add_dataset_args, anchor_params_from_args, make_dataset
+from tdnet_torch.bin._common import (add_dataset_args, anchor_params_from_args, make_dataset,
+                                    maybe_init_distributed)
+from tdnet_torch.device import resolve_device
 from tdnet_torch.models.io import anchor_params_from_meta, load_model
 from tdnet_torch.models.retinanet import RetinaNet
 from tdnet_torch.ops.anchors import AnchorParameters
+from tdnet_torch.parallel.mesh import process_count, process_index
 from tdnet_torch.train.checkpoint import Checkpointer
 from tdnet_torch.train.predictor import Predictor
 from tdnet_torch.train.weights import load_initial_weights
@@ -63,7 +68,8 @@ def parse_args(argv=None):
                              "kernel instead of the fused ingest+stem")
     parser.add_argument("--distributed", default=None, type=str,
                         metavar="COORD:PORT,NPROC,RANK",
-                        help="sharded evaluation: not ported yet (ROADMAP A16)")
+                        help="sharded evaluation: each rank predicts its slice, "
+                             "the detections are all-gathered, rank 0 prints")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -98,9 +104,8 @@ def load_any_model(path, args, num_classes, dtype):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError("--distributed (sharded evaluation) is not "
-                                  "ported yet (ROADMAP A16)")
+    maybe_init_distributed(args.distributed, resolve_device(args.device))
+    shard = process_count() > 1
     dataset = make_dataset(args, "train")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model, variables, anchors, meta = load_any_model(
@@ -127,11 +132,15 @@ def main(argv=None) -> int:
     )
     aps = evaluate(dataset, predictor, iou_threshold=args.iou_threshold,
                    score_threshold=args.score_threshold,
-                   max_detections=args.max_detections)
-    # the reference predicts the dataset a second time for the COCO summary
+                   max_detections=args.max_detections, shard=shard)
+    # the reference predicts the dataset a second time for the COCO summary,
+    # before the rank gate: the sharded gather is a collective
     coco_res = (evaluate_coco(dataset, predictor, score_threshold=args.score_threshold,
-                              max_detections=args.max_detections)
+                              max_detections=args.max_detections, shard=shard)
                 if args.coco else None)
+    if process_index() != 0:
+        # every rank holds the same result; one prints
+        return 0
 
     # the reference's output format
     total_instances, weighted, simple_sum, present = 0, 0.0, 0.0, 0

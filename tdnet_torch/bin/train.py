@@ -32,9 +32,19 @@ the loader's epochs, as the reference does.
 image (``data/transform.py``); ``--tensorboard-dir`` writes TensorBoard
 scalars of every metrics record (``train/events.py``).
 
+``--distributed coord:port,N,rank`` makes this process one of N ranks
+(``parallel/mesh.py``: one process a card, ``nccl`` when each rank has its
+own card, else ``gloo``): each rank loads its own rows of every global
+batch of ``--batch-size`` x N, the step runs under
+``DistributedDataParallel`` with the reference's global loss, the
+per-epoch evaluation is sharded over the ranks, and rank 0 alone writes
+snapshots, metrics, events, the bundle and the logs. ``--zero`` partitions
+the Adam state over the ranks (``parallel/zero.py``), with the numbers of
+plain data parallelism.
+
 Not ported yet; each parses, then raises naming its ROADMAP item:
-``--spatial``, ``--tensor-parallel``, ``--zero``, ``--pipeline``,
-``--microbatches`` and ``--distributed`` (A16).
+``--pipeline`` and ``--microbatches`` (A16.3), ``--spatial`` and
+``--tensor-parallel`` (A16.4).
 """
 
 from __future__ import annotations
@@ -43,13 +53,16 @@ import argparse
 
 import torch
 
-from tdnet_torch.bin._common import add_dataset_args, anchor_params_from_args, make_dataset
+from tdnet_torch.bin._common import (add_dataset_args, anchor_params_from_args, make_dataset,
+                                    maybe_init_distributed)
 from tdnet_torch.data.generator import BatchLoader, LoaderConfig
 from tdnet_torch.data.prefetch import DevicePrefetcher
 from tdnet_torch.device import resolve_device
 from tdnet_torch.models import backbone as backbone_registry
 from tdnet_torch.models.io import save_model
 from tdnet_torch.ops.anchors import AnchorParameters
+from tdnet_torch.parallel.mesh import barrier, is_distributed, process_count, process_index
+from tdnet_torch.parallel.zero import zero_optimizer
 from tdnet_torch.train.checkpoint import Checkpointer
 from tdnet_torch.train.loop import (RSS_BUDGET_EXIT_CODE, ReduceLROnPlateau,
                                     RssBudgetExceeded, fit)
@@ -158,18 +171,23 @@ def parse_args(argv=None):
                         help="host decode/resize threads per batch (<=1: in "
                              "the prefetch thread)")
     parser.add_argument("--spatial", default=1, type=int, metavar="S",
-                        help="spatial partitioning: not ported yet (ROADMAP A16)")
+                        help="spatial partitioning: not ported yet (ROADMAP A16.4)")
     parser.add_argument("--tensor-parallel", default=1, type=int, metavar="M",
-                        help="tensor parallelism: not ported yet (ROADMAP A16)")
+                        help="tensor parallelism: not ported yet (ROADMAP A16.4)")
     parser.add_argument("--zero", action="store_true",
-                        help="ZeRO-1: not ported yet (ROADMAP A16)")
+                        help="ZeRO-1: partition the Adam state over the ranks "
+                             "(parallel/zero.py); parameters stay replicated, "
+                             "numbers equal to plain data parallelism. Not "
+                             "with --spatial/--tensor-parallel")
     parser.add_argument("--pipeline", action="store_true",
-                        help="pipeline parallelism: not ported yet (ROADMAP A16)")
+                        help="pipeline parallelism: not ported yet (ROADMAP A16.3)")
     parser.add_argument("--microbatches", default=None, type=int,
-                        help="pipeline microbatches: not ported yet (ROADMAP A16)")
+                        help="pipeline microbatches: not ported yet (ROADMAP A16.3)")
     parser.add_argument("--distributed", default=None, type=str,
                         metavar="COORD:PORT,NPROC,RANK",
-                        help="multi-host training: not ported yet (ROADMAP A16)")
+                        help="one of NPROC ranks (e.g. 10.0.0.1:1234,4,0): each "
+                             "loads its own rows of every global batch of "
+                             "--batch-size x NPROC; one process a card")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -181,14 +199,17 @@ def parse_args(argv=None):
 
 def _refuse_unported(args) -> None:
     """Flags whose parts come later raise, naming their ROADMAP item; at
-    their defaults they pass."""
+    their defaults they pass. --zero with another parallel form is refused
+    first, with the reference's message."""
+    if args.zero and (args.spatial > 1 or args.tensor_parallel > 1):
+        raise SystemExit(
+            "--zero needs the plain 1-D data mesh (tensor parallelism "
+            "already shards the moments; spatial shards activations)")
     for flag, used, item in (
-        ("--spatial", args.spatial > 1, "A16"),
-        ("--tensor-parallel", args.tensor_parallel > 1, "A16"),
-        ("--zero", args.zero, "A16"),
-        ("--pipeline", args.pipeline, "A16"),
-        ("--microbatches", args.microbatches is not None, "A16"),
-        ("--distributed", args.distributed is not None, "A16"),
+        ("--spatial", args.spatial > 1, "A16.4"),
+        ("--tensor-parallel", args.tensor_parallel > 1, "A16.4"),
+        ("--pipeline", args.pipeline, "A16.3"),
+        ("--microbatches", args.microbatches is not None, "A16.3"),
     ):
         if used:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
@@ -217,6 +238,8 @@ def main(argv=None) -> int:
                          "checkpoints and exits for a --snapshot relaunch); "
                          "drop --no-snapshots")
     device = resolve_device(args.device)
+    maybe_init_distributed(args.distributed, device)
+    shard_eval = process_count() > 1
 
     train_ds = make_dataset(args, "train")
     val_ds = make_dataset(args, "val")
@@ -259,8 +282,11 @@ def main(argv=None) -> int:
             variables = bn_warmup(model, variables, loader.forever(),
                                   num_batches=args.bn_warmup,
                                   preprocess_mode=bb.preprocess_mode, device=device)
+        # one process without a group: --zero has nothing to partition, as
+        # the reference's one-device mesh keeps the plain state
+        make_optimizer = zero_optimizer if args.zero and is_distributed() else create_optimizer
         state = create_train_state(model, variables,
-                                   optimizer=create_optimizer(args.lr, args.clipnorm),
+                                   optimizer=make_optimizer(args.lr, args.clipnorm),
                                    freeze_backbone=args.freeze_backbone, device=device)
         del variables
 
@@ -282,6 +308,11 @@ def main(argv=None) -> int:
 
         evaluate_fn = None
         if (args.evaluation or args.coco_evaluation) and val_ds is not None:
+            # with several ranks every rank predicts its strided slice of the
+            # val set and the detections are all-gathered: the same metrics
+            # on every rank, those of one process
+            if shard_eval and process_index() == 0:
+                print(f"per-epoch evaluation: sharded over {process_count()} processes")
             # one Predictor over the live training model: no copy of the weights
             predictor = Predictor(
                 model,
@@ -305,9 +336,9 @@ def main(argv=None) -> int:
                 try:
                     if args.coco_evaluation:
                         # the numeric keys: AP ... AR_large and AP_<name>
-                        return {k: float(v)
-                                for k, v in evaluate_coco(val_ds, predictor).items()}
-                    aps = evaluate(val_ds, predictor)
+                        return {k: float(v) for k, v in evaluate_coco(
+                            val_ds, predictor, shard=shard_eval).items()}
+                    aps = evaluate(val_ds, predictor, shard=shard_eval)
                 finally:
                     model.output_dtype = torch.float32
                     model.train()
@@ -350,7 +381,7 @@ def main(argv=None) -> int:
     finally:
         loader.close()
 
-    if args.model_path:
+    if args.model_path and process_index() == 0:
         save_model(
             args.model_path,
             model,
@@ -363,6 +394,7 @@ def main(argv=None) -> int:
             },
         )
         print(f"saved deployable model to {args.model_path}")
+    barrier()
     return 0
 
 

@@ -41,6 +41,7 @@ from tdnet_torch.data.image import CAFFE_MEAN_BGR, preprocess_image, resize_imag
 from tdnet_torch.data.transform import (TransformParameters, adjust_transform_for_image,
                                         apply_transform, random_transform_generator,
                                         transform_aabb)
+from tdnet_torch.parallel.mesh import process_count, process_index
 
 __all__ = ["LoaderConfig", "BatchLoader", "default_buckets", "pick_bucket"]
 
@@ -85,9 +86,11 @@ class LoaderConfig:
     # augmentation (the reference's --random-transform)
     random_transform: bool = False
     transform_parameters: TransformParameters = field(default_factory=TransformParameters)
-    # multi-host slicing of every global batch (ROADMAP A16 runs it)
-    process_index: int = 0
-    process_count: int = 1
+    # multi-process slicing of every global batch: every rank computes the
+    # same global batch sequence and loads its strided slice of each. None
+    # resolves from the process group (parallel/mesh.py) at loader build
+    process_index: Optional[int] = None
+    process_count: Optional[int] = None
     # host decode/resize threads; 0 or 1 = in the iterator's thread
     workers: int = 0
 
@@ -106,8 +109,11 @@ class BatchLoader:
         self.dataset = dataset
         self.config = config
         self._rng = np.random.RandomState(config.seed)
-        self.process_index = config.process_index
-        self.process_count = config.process_count
+        if config.process_index is None or config.process_count is None:
+            self.process_index, self.process_count = process_index(), process_count()
+        else:
+            self.process_index = config.process_index
+            self.process_count = config.process_count
         self._pool = None
         if config.workers and config.workers > 1:
             from concurrent.futures import ThreadPoolExecutor

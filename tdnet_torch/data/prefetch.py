@@ -50,6 +50,10 @@ class DevicePrefetcher:
 
     def __init__(self, iterator, device=None, buffer_size: int = 2):
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the card this thread computes on (a data-parallel rank's): the
+            # worker thread starts on card 0
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self._q: queue.Queue = queue.Queue(maxsize=buffer_size)
         self._stop = threading.Event()
         self._err: list = []

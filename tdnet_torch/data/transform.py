@@ -11,14 +11,27 @@ bit for bit.
 
 ``apply_transform`` is the reference's ``cv2.warpAffine`` in numpy: every
 output pixel samples the source through the inverse matrix (inverted as
-cv2 inverts it), with linear or nearest interpolation and the four fill
-modes, at source coordinates computed in float64. Nearest rounds the
-coordinate half up, as cv2 does, and picks cv2's pixel except where the
-coordinate lies within ~1e-6 of a half pixel (cv2's float32 coordinate
-lands on the half); linear agrees with cv2 within ~5e-3 on 0-255 float
-images (``tests/test_torch_transform.py``). The constant fill takes ``cval`` for
-the first channel and 0 for the others, as cv2 does with a scalar border
-value. ``cubic``, ``area`` and ``lanczos4`` raise (ROADMAP A11.1).
+cv2 inverts it) with cv2's kernels and the four fill modes. cv2 5.0 warps
+float images by two routes, and the port follows each:
+
+- ``nearest``, ``linear`` and ``cubic`` (A = -0.75, 4x4 taps) sample at the
+  exact source coordinate, which the port computes in float64 and cv2 in
+  float32. Nearest rounds the coordinate half up, as cv2 does, and picks
+  cv2's pixel except where the coordinate lies within ~1e-6 of a half
+  pixel; linear and cubic agree with cv2 within ~5e-3 and ~7e-3 on 0-255
+  float images. Quantising linear's coordinate to cv2's 1/32 pixel takes it 5.0
+  away from cv2 5.0, so this route is not quantised.
+- ``lanczos4`` (8x8 taps, normalised to sum 1) goes through cv2's older
+  remap: the source coordinate in 10-bit fixed point, rounded to 1/32 of a
+  pixel (``INTER_BITS`` 5), and the coefficients from a table of the 32
+  fractions. The port does the same and agrees within ~2e-4.
+- ``area`` is ``linear``: ``warpAffine`` takes ``INTER_AREA`` as linear
+  (``tests/test_torch_transform.py`` holds them equal).
+
+Each kernel's taps outside the image read the fill mode's pixel; the
+constant fill takes ``cval`` for the first channel and 0 for the others, as
+cv2 does with a scalar border value. Integer images are warped in float32
+and rounded (cv2 interpolates them in fixed point: at most 1 apart).
 """
 
 from __future__ import annotations
@@ -142,6 +155,8 @@ class TransformParameters:
 
 
 _FILL_MODES = ("constant", "nearest", "reflect", "wrap")
+# cv2's warpAffine takes INTER_AREA as linear
+_INTERPOLATIONS = ("nearest", "linear", "area", "cubic", "lanczos4")
 
 
 def _invert_affine(matrix: np.ndarray) -> np.ndarray:
@@ -170,6 +185,66 @@ def _border(i: np.ndarray, n: int, mode: str):
     return np.where(j >= n, 2 * (n - 1) - j, j), None
 
 
+# cv2's INTER_BITS (1/32 pixel) and the fixed point of warpAffine's
+# coordinates (AB_BITS 10), for the route that quantises (lanczos4)
+_INTER_BITS = 5
+_AB_BITS = 10
+
+
+def _cubic_coeffs(t: np.ndarray) -> np.ndarray:
+    """cv2's ``interpolateCubic`` (A = -0.75) at fractions t -> (..., 4),
+    in t's dtype."""
+    a = t.dtype.type(-0.75)
+    one = t.dtype.type(1)
+    c0 = ((a * (t + 1) - 5 * a) * (t + 1) + 8 * a) * (t + 1) - 4 * a
+    c1 = ((a + 2) * t - (a + 3)) * t * t + 1
+    c2 = ((a + 2) * (1 - t) - (a + 3)) * (1 - t) * (1 - t) + 1
+    return np.stack([c0, c1, c2, one - c0 - c1 - c2], -1)
+
+
+def _linear_coeffs(t: np.ndarray) -> np.ndarray:
+    return np.stack([1 - t, t], -1)
+
+
+def _lanczos4_table() -> np.ndarray:
+    """cv2's ``interpolateLanczos4`` at the 32 fractions k/32 -> (32, 8)
+    float32: sin(pi d / 4) sin(pi d) / (pi d / 4)^2 in float64 from the
+    phase identities cv2 uses, 1e30 at d == 0, normalised to sum 1 in
+    float32."""
+    s45 = 0.70710678118654752440084436210485
+    cs = ((1, 0), (-s45, -s45), (0, 1), (s45, -s45),
+          (-1, 0), (s45, s45), (0, -1), (-s45, s45))
+    x = np.arange(1 << _INTER_BITS, dtype=np.float32) / np.float32(1 << _INTER_BITS)
+    y0 = -(x.astype(np.float64) + 3) * np.pi * 0.25
+    s0, c0 = np.sin(y0), np.cos(y0)
+    table = np.empty((x.size, 8), np.float32)
+    for i, (a, b) in enumerate(cs):
+        d = (x + np.float32(3 - i)).astype(np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            c = (a * s0 + b * c0) / (d * np.pi * 0.25) ** 2
+        table[:, i] = np.where(np.abs(d) >= 1e-6, c, 1e30)
+    total = np.zeros(x.size, np.float32)
+    for i in range(8):
+        total += table[:, i]
+    return table * (np.float32(1) / total)[:, None]
+
+
+def _fixed_point_coords(inv: np.ndarray, h: int, w: int):
+    """cv2 ``warpAffine``'s source coordinates in 1/32 pixel: each term in
+    10-bit fixed point (``saturate_cast<int>``, ties to even), shifted down
+    with rounding -> (integer pixel, fraction index) for x and y."""
+    scale = float(1 << _AB_BITS)
+    half = 1 << (_AB_BITS - _INTER_BITS - 1)
+    xs, ys = np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64)
+    out = []
+    for row in inv:
+        per_x = np.rint(row[0] * xs * scale).astype(np.int64)
+        per_y = np.rint((row[1] * ys + row[2]) * scale).astype(np.int64) + half
+        q = (per_y[:, None] + per_x[None, :]) >> (_AB_BITS - _INTER_BITS)
+        out.append((q >> _INTER_BITS, q & ((1 << _INTER_BITS) - 1)))
+    return out
+
+
 def apply_transform(matrix: np.ndarray, image: np.ndarray,
                     params: TransformParameters) -> np.ndarray:
     """Warp an (H, W) or (H, W, C) image by an affine matrix; the output
@@ -177,19 +252,14 @@ def apply_transform(matrix: np.ndarray, image: np.ndarray,
     saturated)."""
     if params.fill_mode not in _FILL_MODES:
         raise KeyError(params.fill_mode)
-    if params.interpolation not in ("linear", "nearest"):
-        raise NotImplementedError(
-            f"interpolation {params.interpolation!r} is not ported yet (ROADMAP "
-            "A11.1); the port warps with 'linear' or 'nearest'")
+    if params.interpolation not in _INTERPOLATIONS:
+        raise KeyError(params.interpolation)
     h, w = image.shape[:2]
     src = image.reshape(h * w, -1)
     work = np.float64 if image.dtype == np.float64 else np.float32
     fill = np.zeros(src.shape[1], np.float64)
     fill[0] = params.cval  # cv2's Scalar(cval): the first channel only
     inv = _invert_affine(matrix)
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
-    sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
-    sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
 
     def sample(iy, ix):
         iy, out_y = _border(iy, h, params.fill_mode)
@@ -199,16 +269,39 @@ def apply_transform(matrix: np.ndarray, image: np.ndarray,
             v[(out_y | out_x).ravel()] = fill.astype(work)
         return v
 
-    if params.interpolation == "nearest":
-        out = sample(np.floor(sy + 0.5).astype(np.int64), np.floor(sx + 0.5).astype(np.int64))
+    if params.interpolation == "lanczos4":
+        (x0, fx), (y0, fy) = _fixed_point_coords(inv, h, w)
+        table = _lanczos4_table().astype(work)
+        cx, cy = table[fx.ravel()], table[fy.ravel()]
     else:
+        ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+        sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+        sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+        if params.interpolation == "nearest":
+            out = sample(np.floor(sy + 0.5).astype(np.int64),
+                         np.floor(sx + 0.5).astype(np.int64))
+            return _cast(out, image)
         x0, y0 = np.floor(sx), np.floor(sy)
-        fx = (sx - x0).astype(work).reshape(-1, 1)
-        fy = (sy - y0).astype(work).reshape(-1, 1)
+        coeffs = _cubic_coeffs if params.interpolation == "cubic" else _linear_coeffs
+        cx = coeffs((sx - x0).astype(work).ravel())
+        cy = coeffs((sy - y0).astype(work).ravel())
         x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
-        top = (1 - fx) * sample(y0, x0) + fx * sample(y0, x0 + 1)
-        bottom = (1 - fx) * sample(y0 + 1, x0) + fx * sample(y0 + 1, x0 + 1)
-        out = (1 - fy) * top + fy * bottom
+    # separable: each row of taps weighted by x, then the rows by y
+    taps = cx.shape[-1]
+    x0, y0 = x0 - (taps // 2 - 1), y0 - (taps // 2 - 1)
+    out = None
+    for i in range(taps):
+        row = None
+        for j in range(taps):
+            term = cx[:, j:j + 1] * sample(y0 + i, x0 + j)
+            row = term if row is None else row + term
+        out = cy[:, i:i + 1] * row if out is None else out + cy[:, i:i + 1] * row
+    return _cast(out, image)
+
+
+def _cast(out: np.ndarray, image: np.ndarray) -> np.ndarray:
+    """Sampled (H*W, C) -> the image's shape and dtype, integers rounded
+    and saturated."""
     if np.issubdtype(image.dtype, np.integer):
         info = np.iinfo(image.dtype)
         out = np.clip(np.rint(out), info.min, info.max)

@@ -1,7 +1,9 @@
 """uint8 page ingestion: normalize raw byte canvases on the device.
 
 Replaces ``tdnet/ops/pallas_ingest.py`` ``normalize_uint8_rows`` (Pallas
-kernel ``_kernel``; wrappers ``normalize_uint8_flat`` / ``normalize_uint8``).
+kernel ``_kernel``; wrappers ``normalize_uint8_flat`` / ``normalize_uint8``,
+and ``normalize_uint8_packed_sharded``, the form for a batch sharded over
+the ranks of a data-parallel run: :func:`normalize_uint8_packed_sharded`).
 It carries the Predictor's uint8 route when the fused stem is off. The
 kernel walks its rows as one flat array, so any row width divisible by 3
 works: the TPU's fixed 3072-byte rows are kept only where they divide.
@@ -19,16 +21,20 @@ the plain version bit for bit.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from tdnet_torch import _build
 from tdnet_torch.data.image import CAFFE_MEAN_BGR
+from tdnet_torch.parallel.mesh import check_shard, process_count
 
 __all__ = [
     "LAUNCHES",
     "ROW",
     "mode_constants",
+    "normalize_uint8_packed_sharded",
     "normalize_uint8_rows",
     "normalize_uint8_rows_plain",
     "pack_uint8_host",
@@ -110,3 +116,18 @@ def normalize_uint8_rows(mat: torch.Tensor, mode: str = "caffe",
     LAUNCHES.count += 1
     _build.check(err, "tdnet_normalize_u8")
     return out
+
+
+def normalize_uint8_packed_sharded(packed: torch.Tensor, mode: str = "caffe",
+                                   out_dtype=torch.float32,
+                                   global_batch: Optional[int] = None) -> torch.Tensor:
+    """The data-parallel form, reference ``normalize_uint8_packed_sharded``
+    on its 1-D data mesh: ``packed`` (b, H, W3) is this rank's shard of a
+    batch of ``global_batch`` rows (default b x the ranks), which must
+    divide over the ranks (else it raises, as the reference does). Each
+    rank normalizes its own shard with the kernel; the elementwise op
+    needs no collective. -> (b, H, W3 // 3, 3)."""
+    b, h, w3 = packed.shape
+    check_shard(b, b * process_count() if global_batch is None else global_batch)
+    out = normalize_uint8_rows(packed.reshape(b * h, w3), mode, out_dtype)
+    return out.reshape(b, h, w3 // 3, 3)

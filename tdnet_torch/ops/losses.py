@@ -8,16 +8,30 @@
 - ``smooth_l1(sigma=3)``: positives only, ``0.5 * sigma^2 * x^2`` below
   ``1 / sigma^2`` and ``|x| - 0.5 / sigma^2`` above, same normaliser.
 
-Both are masks over static shapes, as in the reference.
+Both are masks over static shapes, as in the reference. Each takes an
+optional ``normalizer`` in place of its own count of positives: the
+data-parallel step passes the count over the whole global batch, which is
+the reference's normaliser (its step is one graph over the global batch),
+where each rank's own count would give another gradient.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 __all__ = ["focal", "smooth_l1"]
 
 _KERAS_EPS = 1e-7
+
+
+def _normalizer(anchor_state, count, dtype) -> torch.Tensor:
+    """max(1, the count of positive anchors): ``count`` when given, else
+    this batch's."""
+    if count is None:
+        count = (anchor_state == 1.0).sum()
+    return count.to(dtype).clamp_min(1.0)
 
 
 def _bce_from_probs(labels: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
@@ -32,9 +46,10 @@ def _bce_from_logits(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor
 
 def focal(alpha: float = 0.25, gamma: float = 2.0, from_logits: bool = True):
     """focal_loss(y_true (B, N, K+1) one-hot + anchor state, y_pred (B, N, K)
-    logits or probabilities) -> scalar."""
+    logits or probabilities, normalizer=None) -> scalar."""
 
-    def _focal(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    def _focal(y_true: torch.Tensor, y_pred: torch.Tensor,
+               normalizer: Optional[torch.Tensor] = None) -> torch.Tensor:
         labels = y_true[..., :-1]
         anchor_state = y_true[..., -1]
         if from_logits:
@@ -49,18 +64,18 @@ def focal(alpha: float = 0.25, gamma: float = 2.0, from_logits: bool = True):
         cls_loss = alpha_factor * focal_weight ** gamma * bce
         valid = (anchor_state != -1.0)[..., None]
         cls_loss = torch.where(valid, cls_loss, torch.zeros_like(cls_loss))
-        normalizer = (anchor_state == 1.0).sum().to(cls_loss.dtype).clamp_min(1.0)
-        return cls_loss.sum() / normalizer
+        return cls_loss.sum() / _normalizer(anchor_state, normalizer, cls_loss.dtype)
 
     return _focal
 
 
 def smooth_l1(sigma: float = 3.0):
     """smooth_l1_loss(y_true (B, N, 4+1) targets + anchor state, y_pred
-    (B, N, 4)) -> scalar."""
+    (B, N, 4), normalizer=None) -> scalar."""
     sigma_squared = sigma ** 2
 
-    def _smooth_l1(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    def _smooth_l1(y_true: torch.Tensor, y_pred: torch.Tensor,
+                   normalizer: Optional[torch.Tensor] = None) -> torch.Tensor:
         target = y_true[..., :-1]
         anchor_state = y_true[..., -1]
         diff = (y_pred - target).abs()
@@ -69,7 +84,6 @@ def smooth_l1(sigma: float = 3.0):
                            diff - 0.5 / sigma_squared)
         positive = (anchor_state == 1.0)[..., None]
         loss = torch.where(positive, loss, torch.zeros_like(loss))
-        normalizer = (anchor_state == 1.0).sum().to(loss.dtype).clamp_min(1.0)
-        return loss.sum() / normalizer
+        return loss.sum() / _normalizer(anchor_state, normalizer, loss.dtype)
 
     return _smooth_l1

@@ -12,11 +12,20 @@ backward, the counterpart of ``tdnet/ops/stem_vjp.py``.
 
 In f32 the two backwards agree to rounding. In bf16 each routes on its own
 forward's rounded values. The uint8 input gets no gradient; ``inv``/``off``
-get one only when they require it (BN not frozen). The mesh-sharded form of
-the reference waits for the parallel slice (ROADMAP A16).
+get one only when they require it (BN not frozen).
+
+The reference's mesh-sharded form (``shard_map`` over the data axis, the
+parameter gradients ``psum``'d) is ``global_batch=``: each rank runs the
+forward and backward kernels on its own shard of the batch, and its
+parameter gradients are that shard's. The ``psum`` is
+``DistributedDataParallel``'s all-reduce in the train step, which averages
+over the ranks; the step scales each rank's loss by the number of ranks,
+so the average is the reference's sum (``train/step.py``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +33,7 @@ import torch.nn.functional as F
 from tdnet_torch.models.resnet import max_pool_same
 from tdnet_torch.ops.ingest import normalize_uint8_rows
 from tdnet_torch.ops.stem import fused_stem_bwd_packed, fused_stem_packed
+from tdnet_torch.parallel.mesh import check_shard
 
 __all__ = ["BACKWARDS", "fused_stem_train", "stem_reference_packed"]
 
@@ -75,11 +85,17 @@ class _StemTrain(torch.autograd.Function):
 def fused_stem_train(packed: torch.Tensor, kernel7: torch.Tensor,
                      inv: torch.Tensor, off: torch.Tensor,
                      normalize: str = "caffe", out_dtype=torch.bfloat16,
-                     backward: str = "remat") -> torch.Tensor:
+                     backward: str = "remat",
+                     global_batch: Optional[int] = None) -> torch.Tensor:
     """Differentiable fused ingest+stem on packed (B, H, W*3) uint8 rows ->
     (B, H/4, W/4, 64) in out_dtype; ``backward`` is "kernel" or "remat".
-    The forward checks the inputs."""
+    The forward checks the inputs. With ``global_batch`` the rows are this
+    rank's shard of a batch of that many rows split over the ranks, which
+    must divide evenly (else it raises, as the reference's mesh form
+    does)."""
     if backward not in BACKWARDS:
         raise ValueError(f"unknown backward mode {backward!r}")
+    if global_batch is not None:
+        check_shard(packed.shape[0], global_batch)
     return _StemTrain.apply(packed, kernel7, inv, off, normalize, out_dtype,
                             backward)

@@ -7,6 +7,13 @@ same payload (plus the learning rate) with ``torch.save`` to
 place, so a reader never sees half a checkpoint. ``opt_state`` is the
 optimizer's ``state_dict``: a resume restores the Adam moments and step
 count, not only the weights. Loading uses ``weights_only=True``.
+
+With a process group (``parallel/mesh.py``) every rank calls ``save``:
+a ZeRO-1 optimizer (``parallel/zero.py``) first gathers its partitions on
+rank 0, rank 0 alone writes, and the other ranks wait at a barrier, so
+the checkpoint is written once and is in place on every rank's return.
+``restore`` reads the same file on every rank; a ZeRO-1 optimizer keeps
+its own partition of the Adam state.
 """
 
 from __future__ import annotations
@@ -17,6 +24,9 @@ import tempfile
 from typing import Optional
 
 import torch
+from torch.distributed.optim import ZeroRedundancyOptimizer
+
+from tdnet_torch.parallel.mesh import barrier, process_index
 
 __all__ = ["Checkpointer"]
 
@@ -48,7 +58,14 @@ class Checkpointer:
 
     def save(self, step: int, state) -> None:
         """Save {params, batch_stats, opt_state, step, lr}; returns when the
-        checkpoint is in place."""
+        checkpoint is in place. Call it on every rank."""
+        if isinstance(state.optimizer, ZeroRedundancyOptimizer):
+            state.optimizer.consolidate_state_dict(to=0)
+        if process_index() == 0:
+            self._write(step, state)
+        barrier()
+
+    def _write(self, step: int, state) -> None:
         params, stats = _split(state.model)
         opt = state.optimizer.state_dict()
         payload = {

@@ -8,6 +8,14 @@ metrics (loss parts, lr, images/s) to stdout, JSONL and optionally
 TensorBoard event files. Metrics are summed
 on the device and read back only at log time, so the host does not wait for
 the device on every step.
+
+With a process group (``parallel/mesh.py``) every rank runs the loop, and
+the metrics, which the data-parallel step makes global, are equal on
+every rank, so the LR schedule and the epoch ends stay in step. Rank 0
+alone prints, writes the JSONL and TensorBoard files and the profile; the
+snapshot is saved by every rank's call (``train/checkpoint.py``: rank 0
+writes), the evaluation runs on every rank (the CLI shards it), and the RSS
+budget stops every rank when any rank crosses it.
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
+from tdnet_torch.parallel.mesh import is_distributed, process_index
 from tdnet_torch.train.events import EventFileWriter
 
 __all__ = ["ReduceLROnPlateau", "MetricsWriter", "EpochCloser",
@@ -129,7 +139,7 @@ class EpochCloser:
                 or epoch == self.epochs - 1)
 
     def close(self, epoch: int, epoch_loss: float, epoch_time_s: float,
-              eval_metrics: Optional[dict] = None) -> dict:
+              eval_metrics: Optional[dict] = None, log: bool = True) -> dict:
         rec = {"epoch": epoch, "epoch_loss": round(epoch_loss, 5),
                "epoch_time_s": round(epoch_time_s, 2)}
         # a >10x single-epoch loss jump is the Adam second-moment collapse
@@ -147,9 +157,20 @@ class EpochCloser:
         if eval_metrics is not None:
             rec.update({k: (round(v, 5) if isinstance(v, float) else v)
                         for k, v in eval_metrics.items()})
-        print(json.dumps(rec), flush=True)
-        self.writer.write(rec)
+        if log:
+            print(json.dumps(rec), flush=True)
+            self.writer.write(rec)
         return rec
+
+
+def _max_over_ranks(value: float) -> float:
+    if not is_distributed():
+        return value
+    t = torch.tensor([value], dtype=torch.float64)
+    if dist.get_backend() == "nccl":
+        t = t.cuda()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
 
 
 def _rss_mb() -> float:
@@ -200,14 +221,16 @@ def fit(
     ``profile_dir`` traces the second epoch with ``torch.profiler`` into
     ``profile_dir/trace.json``.
     """
-    writer = MetricsWriter(metrics_path, tensorboard_dir)
+    lead = process_index() == 0
+    writer = MetricsWriter(metrics_path if lead else None,
+                           tensorboard_dir if lead else None)
     batches_per_log = max(1, log_every)
     closer = EpochCloser(writer, epochs=epochs, eval_every=eval_every,
                          initial_epoch=initial_epoch)
     prof = None
     try:
         for epoch in range(initial_epoch, epochs):
-            if profile_dir and epoch == initial_epoch + 1:
+            if profile_dir and lead and epoch == initial_epoch + 1:
                 prof = _profiler(profile_dir, state.device)
                 prof.start()
             epoch_start = time.time()
@@ -234,8 +257,9 @@ def fit(
                         **{k: round(v / (step_in_epoch + 1), 5)
                            for k, v in host_sums.items()},
                     }
-                    print(json.dumps(rec), flush=True)
-                    writer.write(rec)
+                    if lead:
+                        print(json.dumps(rec), flush=True)
+                        writer.write(rec)
                     window_start = time.time()
                     window_images = 0
 
@@ -244,13 +268,13 @@ def fit(
                             if evaluate_fn is not None and closer.should_eval(epoch)
                             else None)
             closer.close(epoch, epoch_loss, time.time() - epoch_start,
-                         eval_metrics)
+                         eval_metrics, log=lead)
 
             if checkpointer is not None:
                 checkpointer.save(int(state.step), state)
 
             if rss_budget_mb is not None and epoch < epochs - 1:
-                rss = _rss_mb()
+                rss = _max_over_ranks(_rss_mb())
                 if rss > rss_budget_mb:
                     raise RssBudgetExceeded(state, epoch, rss, rss_budget_mb)
 

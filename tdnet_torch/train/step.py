@@ -17,6 +17,19 @@ Image routes, as in the reference:
   backward;
 - other uint8 -> the normalize kernel -> the full model;
 - float -> the full model.
+
+Data parallelism (the reference's step over a batch-sharded mesh): when a
+process group is initialised (``parallel/mesh.py``), each rank runs the
+step on its own rows of the global batch, with the model under
+``DistributedDataParallel`` (``broadcast_buffers=False``: the BatchNorm is
+frozen and has no batch statistics to share) and the kernels' sharded
+forms. The reference is one graph over the global batch: focal and
+smooth-L1 divide by the positive anchors of the WHOLE global batch. So the
+step all-reduces the positive count, each rank divides its sums by it and
+scales its loss by the number of ranks, and DDP's average of the ranks'
+gradients is the reference's gradient. The reported loss, its parts,
+``num_positive`` and ``grad_norm`` are the global ones, equal on every
+rank, and each tensor's clipping then sees the reference's gradient.
 """
 
 from __future__ import annotations
@@ -27,15 +40,18 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from tdnet_torch.device import resolve_device
 from tdnet_torch.models.retinanet import takes_fused_stem
 from tdnet_torch.ops.anchors import AnchorParameters, anchors_for_shape
-from tdnet_torch.ops.ingest import normalize_uint8_rows
+from tdnet_torch.ops.ingest import normalize_uint8_packed_sharded
 from tdnet_torch.ops.losses import focal, smooth_l1
 from tdnet_torch.ops.stem import supports_shape
 from tdnet_torch.ops.stem_vjp import fused_stem_train
 from tdnet_torch.ops.targets import batched_anchor_targets
+from tdnet_torch.parallel.mesh import is_distributed, process_count
 from tdnet_torch.weights import torch_state_from_variables
 
 __all__ = [
@@ -125,11 +141,14 @@ def make_train_step(
     fused_stem: Optional[bool] = None,
 ) -> Callable:
     """train_step(state, batch) -> (state, metrics). ``batch`` holds device
-    tensors: images, gt_boxes, gt_labels, gt_mask, image_hw. ``fused_stem``
-    None means on for CUDA with a ResNet or SE-ResNet backbone and caffe/tf
-    mode; other backbones take the normalize kernel. Metrics
-    are device tensors: loss, classification_loss, regression_loss,
-    num_positive, grad_norm (the global norm before clipping)."""
+    tensors: images, gt_boxes, gt_labels, gt_mask, image_hw (with a process
+    group: this rank's rows). ``fused_stem`` None means on for CUDA with a
+    ResNet or SE-ResNet backbone and caffe/tf mode; other backbones take
+    the normalize kernel. Metrics are device tensors: loss,
+    classification_loss, regression_loss, num_positive, grad_norm (the
+    global norm before clipping). Build it on every rank after the state:
+    with a process group it wraps the model in DDP, which broadcasts rank
+    0's parameters."""
     focal_fn = focal(alpha=focal_alpha, gamma=focal_gamma, from_logits=True)
     l1_fn = smooth_l1(sigma=smooth_l1_sigma)
     anchors: Dict[tuple, torch.Tensor] = {}
@@ -137,6 +156,18 @@ def make_train_step(
         fused_stem = (next(model.parameters()).device.type == "cuda"
                       and takes_fused_stem(model.backbone_name)
                       and preprocess_mode in ("caffe", "tf"))
+    parallel = is_distributed()
+    world = process_count()
+    net = model
+    if parallel:
+        dev = next(model.parameters()).device
+        net = DistributedDataParallel(
+            model, broadcast_buffers=False,
+            device_ids=[dev] if dev.type == "cuda" else None)
+        # DDP broadcast rank 0's parameters; the BN statistics too, once (a
+        # --bn-warmup estimates them from each rank's own batches)
+        for buf in model.buffers():
+            dist.broadcast(buf, 0)
 
     def forward(images):
         """images -> (model outputs, unpadded canvas (h, w))."""
@@ -144,18 +175,21 @@ def make_train_step(
             b, h, w, _ = images.shape
             images = images.reshape(b, h, w * 3)
         if images.dtype != torch.uint8:
-            return model(images), tuple(images.shape[1:3])
+            return net(images), tuple(images.shape[1:3])
         b, h, w3 = images.shape
+        # the reference's mesh forms of the kernels: this rank's shard of a
+        # global batch of b x ranks rows (one rank: the whole batch)
         if fused_stem and supports_shape((b, h, w3 // 3, 3)):
             k7, inv, off = model.stem_params()
             act = fused_stem_train(
                 images, k7, inv, off, normalize=preprocess_mode,
                 out_dtype=model.dtype,
-                backward=os.environ.get("TDNET_STEM_BWD", "kernel"))
-            return model(act, stem_input=True), (h, w3 // 3)
-        x = normalize_uint8_rows(images.reshape(b * h, w3), preprocess_mode,
-                                 out_dtype=model.dtype)
-        return model(x.reshape(b, h, w3 // 3, 3)), (h, w3 // 3)
+                backward=os.environ.get("TDNET_STEM_BWD", "kernel"),
+                global_batch=b * world)
+            return net(act, stem_input=True), (h, w3 // 3)
+        x = normalize_uint8_packed_sharded(images, preprocess_mode, model.dtype,
+                                           global_batch=b * world)
+        return net(x), (h, w3 // 3)
 
     def train_step(state: TrainState, batch: dict):
         outputs, hw = forward(batch["images"])
@@ -166,22 +200,29 @@ def make_train_step(
         labels, regression = batched_anchor_targets(
             anchors[hw], batch["gt_boxes"], batch["gt_labels"],
             batch["gt_mask"], batch["image_hw"], num_classes)
-        cls_loss = focal_fn(labels, outputs["classification"].float())
-        reg_loss = l1_fn(regression, outputs["regression"].float())
+        num_positive = (labels[..., -1] == 1.0).sum()
+        if parallel:
+            dist.all_reduce(num_positive)
+        cls_loss = focal_fn(labels, outputs["classification"].float(), num_positive)
+        reg_loss = l1_fn(regression, outputs["regression"].float(), num_positive)
         total = cls_loss + reg_loss
         for p in state.model.parameters():
             p.grad = None
-        total.backward()
+        # DDP averages the ranks' gradients: scaled, the average is the sum
+        (total * world).backward()
         grads = [p.grad for p in state.model.parameters() if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         state.optimizer.step()
         state.step += 1
+        parts = torch.stack([cls_loss.detach(), reg_loss.detach()])
+        if parallel:
+            dist.all_reduce(parts)
         metrics = {
-            "loss": total.detach(),
-            "classification_loss": cls_loss.detach(),
-            "regression_loss": reg_loss.detach(),
-            "num_positive": (labels[..., -1] == 1.0).sum(),
+            "loss": parts[0] + parts[1],
+            "classification_loss": parts[0],
+            "regression_loss": parts[1],
+            "num_positive": num_positive,
             "grad_norm": grad_norm,
         }
         return state, metrics

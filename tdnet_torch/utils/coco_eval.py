@@ -185,14 +185,11 @@ def evaluate_coco(
     max_detections: int = 100,
     shard: bool = False,
 ) -> Dict[str, float]:
-    """Full COCO summary over a dataset. `predictor` as in utils/eval.py.
-    ``shard=True`` (prediction split across processes) is not ported yet
-    (ROADMAP A16) and raises."""
-    if shard:
-        raise NotImplementedError("sharded COCO evaluation is not ported yet "
-                                  "(ROADMAP A16)")
+    """Full COCO summary over a dataset. `predictor` as in utils/eval.py;
+    ``shard=True`` splits the prediction over the ranks (utils/eval.py
+    ``_get_detections``): the same result on every rank."""
     all_detections = _get_detections(
-        dataset, predictor, score_threshold, max_detections)
+        dataset, predictor, score_threshold, max_detections, shard)
     num_images = dataset.size()
 
     # per (image, class): GT boxes + per-annotation areas when the dataset

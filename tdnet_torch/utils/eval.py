@@ -1,6 +1,5 @@
 """VOC-style mAP evaluation on the host, the counterpart of
-``tdnet/utils/eval.py`` (single process; the sharded evaluation waits for
-ROADMAP A16).
+``tdnet/utils/eval.py``.
 
 Per image: detections scoring above ``score_threshold``, at most
 ``max_detections`` by score. Per class: detections in descending score
@@ -12,6 +11,11 @@ interpolation. Returns ``{label: (ap, num_annotations)}``.
 The predictor maps a raw BGR image to (boxes, scores, labels) in image
 coordinates; one with ``predict_batch`` and ``batch_size`` > 1 gets chunks
 of ``batch_size`` images.
+
+``shard=True`` with a process group (``parallel/mesh.py``): each rank
+predicts its strided slice of the dataset (images rank, rank + N, ...) and
+the detection rows are all-gathered (``process_allgather_rows``), so every
+rank returns the identical, bit-exact result of a single-process run.
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 import numpy as np
+
+from tdnet_torch.parallel.mesh import (process_allgather_rows, process_count,
+                                      process_index)
 
 __all__ = ["evaluate", "compute_ap", "compute_overlap"]
 
@@ -51,9 +58,13 @@ def compute_ap(recall: np.ndarray, precision: np.ndarray) -> float:
     return float(np.sum((mrec[idx + 1] - mrec[idx]) * mpre[idx + 1]))
 
 
-def _get_detections(dataset, predictor, score_threshold, max_detections):
-    """all_detections[image][label]: (D, 5) rows x1, y1, x2, y2, score."""
+def _get_detections(dataset, predictor, score_threshold, max_detections,
+                    shard=False):
+    """all_detections[image][label]: (D, 5) rows x1, y1, x2, y2, score; with
+    ``shard`` this rank predicts its slice and the rows are gathered."""
     num_classes = dataset.num_classes()
+    nproc = process_count() if shard else 1
+    my_images = list(range(process_index() if shard else 0, dataset.size(), nproc))
     all_detections = [[None] * num_classes for _ in range(dataset.size())]
     batch_size = int(getattr(predictor, "batch_size", 1) or 1)
     predict_batch = getattr(predictor, "predict_batch", None)
@@ -72,14 +83,28 @@ def _get_detections(dataset, predictor, score_threshold, max_detections):
                 all_detections[i][label] = dets[labels == label]
 
     if predict_batch is not None and batch_size > 1:
-        for start in range(0, dataset.size(), batch_size):
-            idxs = list(range(start, min(start + batch_size, dataset.size())))
+        for start in range(0, len(my_images), batch_size):
+            idxs = my_images[start:start + batch_size]
             images = [dataset.load_image(i) for i in idxs]
             for i, (boxes, scores, labels) in zip(idxs, predict_batch(images)):
                 record(i, boxes, scores, labels)
     else:
-        for i in range(dataset.size()):
+        for i in my_images:
             record(i, *predictor(dataset.load_image(i)))
+    if nproc > 1:
+        # (image, label, x1, y1, x2, y2, score) rows in local record order
+        # (score-descending per image): the order within each (image,
+        # label) survives the gather, so the matching is bit-identical
+        rows = [np.concatenate([np.full((d.shape[0], 2), (i, label), np.float64), d], 1)
+                for i in my_images for label, d in enumerate(all_detections[i])
+                if d is not None and d.shape[0]]
+        gathered = process_allgather_rows(
+            np.concatenate(rows) if rows else np.zeros((0, 7), np.float64))
+        for i in range(dataset.size()):
+            img_rows = gathered[gathered[:, 0] == i]
+            for label in range(num_classes):
+                if dataset.has_label(label):
+                    all_detections[i][label] = img_rows[img_rows[:, 1] == label][:, 2:]
     return all_detections
 
 
@@ -95,10 +120,12 @@ def _get_annotations(dataset):
 
 
 def evaluate(dataset, predictor: Callable, iou_threshold: float = 0.5,
-             score_threshold: float = 0.05, max_detections: int = 100
-             ) -> Dict[int, Tuple[float, int]]:
-    """Evaluate a predictor over a dataset -> {label: (AP, num_annotations)}."""
-    all_detections = _get_detections(dataset, predictor, score_threshold, max_detections)
+             score_threshold: float = 0.05, max_detections: int = 100,
+             shard: bool = False) -> Dict[int, Tuple[float, int]]:
+    """Evaluate a predictor over a dataset -> {label: (AP, num_annotations)};
+    ``shard`` splits the prediction over the ranks."""
+    all_detections = _get_detections(dataset, predictor, score_threshold,
+                                     max_detections, shard)
     all_annotations = _get_annotations(dataset)
     average_precisions: Dict[int, Tuple[float, int]] = {}
     for label in range(dataset.num_classes()):

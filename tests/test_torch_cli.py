@@ -487,9 +487,11 @@ def test_predict_and_evaluate_clis_on_cpu(tiny_bundle, tmp_path, capsys):
 
 
 def test_cli_options_the_port_does_not_run_yet(tiny_bundle, tmp_path, capsys):
-    """--distributed raises naming its ROADMAP item; the other datasets are
-    ported (a missing COCO root raises as in the reference); a keras .h5
-    model (ported) evaluates as the .tdn of the same weights does."""
+    """A malformed --distributed exits with its usage, and one process is
+    the plain run (two ranks: tests/test_torch_parallel.py); the other
+    datasets are ported (a missing COCO root raises as in the reference); a
+    keras .h5 model (ported) evaluates as the .tdn of the same weights
+    does."""
     from tdnet_torch.bin import evaluate, predict
     from tdnet_torch.compat.keras_import import export_random_keras_weights
     from tdnet_torch.models.io import load_model
@@ -497,8 +499,8 @@ def test_cli_options_the_port_does_not_run_yet(tiny_bundle, tmp_path, capsys):
     csv_args = ["csv", str(tiny_bundle / "annotations.csv"), str(tiny_bundle / "classes.csv")]
     model = str(tiny_bundle / "model.tdn")
     cpu = ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="A16"):
-        evaluate.main([*cpu, "--distributed", "x:1,2,0", *csv_args, model])
+    with pytest.raises(SystemExit, match="coordinator:port,num_processes,process_id"):
+        evaluate.main([*cpu, "--distributed", "x:1,2", *csv_args, model])
     with pytest.raises(FileNotFoundError):  # .h5 is ported: as h5py, a missing file
         evaluate.main([*cpu, *csv_args, "weights.h5"])
     with pytest.raises(FileNotFoundError, match="instances_train2017.json"):
@@ -511,6 +513,8 @@ def test_cli_options_the_port_does_not_run_yet(tiny_bundle, tmp_path, capsys):
     capsys.readouterr()
     assert evaluate.main([*size, *csv_args, model]) == 0
     want = capsys.readouterr().out.splitlines()
+    assert evaluate.main([*size, "--distributed", "127.0.0.1:1,1,0", *csv_args, model]) == 0
+    assert capsys.readouterr().out.splitlines() == want
     assert evaluate.main([*size, *csv_args, str(tmp_path / "model.h5")]) == 0
     got = capsys.readouterr().out.splitlines()
     assert got[0].startswith("keras h5 import: matched ")

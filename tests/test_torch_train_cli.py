@@ -366,12 +366,10 @@ def test_load_initial_weights_equals_reference(two_class, port_run, capsys):
 
 
 UNPORTED = [
-    (["--spatial", "2"], "A16"),
-    (["--tensor-parallel", "2"], "A16"),
-    (["--zero"], "A16"),
-    (["--pipeline"], "A16"),
-    (["--microbatches", "2"], "A16"),
-    (["--distributed", "x:1,2,0"], "A16"),
+    (["--spatial", "2"], "A16.4"),
+    (["--tensor-parallel", "2"], "A16.4"),
+    (["--pipeline"], "A16.3"),
+    (["--microbatches", "2"], "A16.3"),
 ]
 
 
@@ -382,9 +380,18 @@ def test_unported_flags_raise_naming_their_item(flags, item):
 
 
 def test_unported_flags_at_their_defaults_pass():
+    """At their defaults the unported flags pass, and --zero and
+    --distributed parse; --zero with another parallel form is refused with
+    the reference's message, and a malformed --distributed with its
+    usage."""
     args = train.parse_args(["--bn-warmup", "0", "--spatial", "1", "--tensor-parallel", "1",
-                             "--weights", "w.tdn", "csv", "a.csv", "c.csv"])
+                             "--zero", "--weights", "w.tdn", "csv", "a.csv", "c.csv"])
     train._refuse_unported(args)
+    for flags in (["--spatial", "2"], ["--tensor-parallel", "2"]):
+        with pytest.raises(SystemExit, match="--zero needs the plain 1-D data mesh"):
+            train.main(["--device", "cpu", "--zero", *flags, "csv", "a.csv", "c.csv"])
+    with pytest.raises(SystemExit, match="coordinator:port,num_processes,process_id"):
+        train.main(["--device", "cpu", "--distributed", "x:1,two,0", "csv", "a.csv", "c.csv"])
 
 
 def test_rss_budget_needs_snapshots_and_cuda_needs_a_card(data):

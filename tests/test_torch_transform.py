@@ -18,6 +18,10 @@ from tdnet_torch.data.generator import BatchLoader, LoaderConfig
 # float32 coordinate rounds onto the half.
 WARP_ATOL = 1e-2
 TIE_PX = 1e-4
+# cubic: 6.6e-3 (the same float32 coordinates). lanczos4 goes through cv2's
+# remap at 1/32 pixel, which the port copies: 1.8e-4 (float32 sums in
+# another order).
+LANCZOS4_ATOL = 1e-3
 
 # the loader's --random-transform ranges (tdnet/data/generator.py)
 RANGES = dict(min_rotation=-0.1, max_rotation=0.1, min_translation=(-0.1, -0.1),
@@ -53,12 +57,13 @@ def test_matrices_and_boxes_equal_reference(ranges):
         np.testing.assert_array_equal(port.transform_aabb(t, box), ref.transform_aabb(t_ref, box))
 
 
-@pytest.mark.parametrize("interpolation", ["linear", "nearest"])
+@pytest.mark.parametrize("interpolation", ["linear", "nearest", "cubic", "lanczos4"])
 @pytest.mark.parametrize("fill_mode", ["constant", "nearest", "reflect", "wrap"])
 def test_warp_equals_cv2(fill_mode, interpolation):
     """Float32 noise in 0-255 (RGB and gray), three matrices a seed: linear
-    within WARP_ATOL of cv2; nearest equal but at half-pixel ties. The
-    constant fill takes cval for the first channel only, as cv2 does."""
+    and cubic within WARP_ATOL of cv2, lanczos4 within LANCZOS4_ATOL;
+    nearest equal but at half-pixel ties. The constant fill takes cval for
+    the first channel only, as cv2 does."""
     from tdnet.data import transform as ref
 
     rng = np.random.RandomState(3)
@@ -74,7 +79,7 @@ def test_warp_equals_cv2(fill_mode, interpolation):
                 want = ref.apply_transform(t, image, ref.TransformParameters(
                     fill_mode=fill_mode, interpolation=interpolation, cval=7.0))
                 assert got.dtype == want.dtype and got.shape == want.shape
-                if interpolation == "linear":
+                if interpolation != "nearest":
                     worst = max(worst, float(np.abs(got - want).max()))
                     continue
                 differ = (got != want).reshape(120, 160, -1).any(-1)
@@ -86,28 +91,49 @@ def test_warp_equals_cv2(fill_mode, interpolation):
                     near_half |= np.abs(frac - 0.5) < TIE_PX
                 assert not (differ & ~near_half).any()
                 ties += int(differ.sum())
-    assert worst <= WARP_ATOL, worst
+    assert worst <= (LANCZOS4_ATOL if interpolation == "lanczos4" else WARP_ATOL), worst
     assert ties <= 8, ties
+
+
+@pytest.mark.parametrize("fill_mode", ["constant", "nearest", "reflect", "wrap"])
+def test_area_is_linear(fill_mode):
+    """cv2's warpAffine takes INTER_AREA as INTER_LINEAR: equal there, and
+    equal in the port, on float and uint8 pages."""
+    from tdnet.data import transform as ref
+
+    rng = np.random.RandomState(6)
+    for image in (rng.uniform(0, 255, (60, 80, 3)).astype(np.float32),
+                  rng.randint(0, 256, (60, 80)).astype(np.uint8)):
+        for got_t, _ in _matrices(2, 13, **RANGES):
+            t = port.adjust_transform_for_image(got_t, image)
+            kw = dict(fill_mode=fill_mode, cval=5.0)
+            np.testing.assert_array_equal(
+                port.apply_transform(t, image, port.TransformParameters(interpolation="area", **kw)),
+                port.apply_transform(t, image, port.TransformParameters(interpolation="linear", **kw)))
+            np.testing.assert_array_equal(
+                ref.apply_transform(t, image, ref.TransformParameters(interpolation="area", **kw)),
+                ref.apply_transform(t, image, ref.TransformParameters(interpolation="linear", **kw)))
 
 
 def test_warp_of_integer_images_and_unported_modes():
     """uint8 images round and saturate (cv2 interpolates them in fixed
-    point: at most 1 apart on a few pixels); cubic, area and lanczos4
-    raise naming their ROADMAP item."""
+    point: at most 1 apart on a few pixels) with every interpolation; a
+    name cv2 has no flag for raises KeyError, as the reference's lookup
+    does (every mode of the reference is ported now)."""
     from tdnet.data import transform as ref
 
     image = np.random.RandomState(4).randint(0, 256, (60, 80, 3)).astype(np.uint8)
     t = port.adjust_transform_for_image(_matrices(1, 5, **RANGES)[0][0], image)
-    for interpolation in ("linear", "nearest"):
+    for interpolation in ("linear", "nearest", "area", "cubic", "lanczos4"):
         got = port.apply_transform(t, image, port.TransformParameters(interpolation=interpolation))
         want = ref.apply_transform(t, image, ref.TransformParameters(interpolation=interpolation))
         assert got.dtype == np.uint8
         diff = np.abs(got.astype(int) - want)
-        assert diff.max() <= (1 if interpolation == "linear" else 255)
-        assert (diff > 0).mean() < 0.01
-    for interpolation in ("cubic", "area", "lanczos4"):
-        with pytest.raises(NotImplementedError, match="A11.1"):
-            port.apply_transform(t, image, port.TransformParameters(interpolation=interpolation))
+        assert diff.max() <= (255 if interpolation == "nearest" else 1), interpolation
+        assert (diff > 0).mean() < 0.01, interpolation
+    for mod in (port, ref):
+        with pytest.raises(KeyError):
+            mod.apply_transform(t, image, mod.TransformParameters(interpolation="bicubic"))
 
 
 class FloatPages:

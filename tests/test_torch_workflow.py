@@ -138,8 +138,10 @@ def test_coco_eval_without_detections_and_sharded():
     assert port.summarize_coco(got) == ref.summarize_coco(got)
     empty = _FakeDataset([([], [])] * 2, 1, ["table"])
     assert port.evaluate_coco(empty, _Replay(none)) == ref.evaluate_coco(empty, _Replay(none))
-    with pytest.raises(NotImplementedError, match="A16"):
-        port.evaluate_coco(ds, _Replay(dets), shard=True)
+    # without a process group the sharded form is one process's, as in the
+    # reference (two ranks: tests/test_torch_parallel.py)
+    assert (port.evaluate_coco(ds, _Replay(dets), shard=True)
+            == ref.evaluate_coco(ds, _Replay(dets), shard=True))
 
 
 # ------------------------------------------------------------- csv_from_xml
@@ -523,7 +525,8 @@ def test_evaluate_coco_prints_the_reference_summary(tiny, capsys, monkeypatch):
     want = ref.evaluate_coco(ds, seen["predictor"], **seen["kw"])
     assert lines[3:] == [*ref.summarize_coco(want).splitlines(),
                          f"AP_table: {want['AP_table']:.4f}"]
-    assert seen["kw"] == {"score_threshold": 0.05, "max_detections": 100}
+    # one process: not sharded (the reference's CLI passes shard= too)
+    assert seen["kw"] == {"score_threshold": 0.05, "max_detections": 100, "shard": False}
 
 
 def test_train_coco_evaluation_logs_the_coco_keys(tiny, tmp_path):
