@@ -56,7 +56,12 @@ family):
   they share it over gloo; more: a card each over NCCL), plain and with
   ``--zero`` (its bundle byte-equal to plain's), an f32 step against one
   process at the same global batch, and ``evaluate --distributed --coco``
-  against one process; and a 1-rank NCCL group through the same CLIs.
+  against one process; and a 1-rank NCCL group through the same CLIs;
+- the other parallel forms: ``PipelineTrainer`` (two cards, or both stages
+  on one) and ``train --pipeline`` (two cards), ``train --spatial 2`` and
+  ``--tensor-parallel 2`` in two child ranks with per-epoch evaluation,
+  each form's f32 step against the plain one, and ``evaluate`` of each
+  form's bundle.
 
 The fused 1x1 conv kernel (B7) is wired into no model, so only the kernel
 check runs it.
@@ -178,6 +183,14 @@ PAGES_MATCH_PX = 0.005  # the 2-decimal rounding of a JSON box
 DIST_RANKS, DIST_BATCH, DIST_STEPS, DIST_PAGES = 2, 2, 2, 8
 DIST_NORMALIZE_BACKBONE = "mobilenet"  # a family that takes the normalize kernel
 DIST_EVAL_GT = 3  # GT boxes a golden page: the model's own best (phase_distributed)
+# the parallel_forms phase: PF_PAGES pages at the 800x1344 bucket (two of
+# them the per-epoch evaluation's); the pipeline at batch PF_PIPE_BATCH in
+# PF_PIPE_MICRO microbatches, PF_STEPS bf16 steps; --spatial / --tensor-parallel
+# 2 in DIST_RANKS child ranks at batch PF_BATCH a data row for PF_STEPS bf16
+# steps; each form's f32 step at PF_F32_BATCH against the plain one
+PF_PAGES, PF_STEPS, PF_BATCH, PF_F32_BATCH = 4, 2, 1, 1
+PF_PIPE_BATCH, PF_PIPE_MICRO = 4, 2
+PF_LR = 1e-4
 R101_SIDE, R101_PAGE, R101_PAGES = 1024, (1100, 1000), 16  # -> 1024x931, bucket 1024^2
 # the backbones phase: one RetinaNet of each other family, full width and
 # depth; CUDA-vs-CPU parity at 512x512 (pages of R101's parity), 2 bf16 train
@@ -3700,6 +3713,333 @@ def phase_distributed(dev):
     return launches
 
 
+def _weights_against(name, got_path, want_path, before, lr):
+    """A form's f32 bundle against the plain one's: every weight moved by at
+    most lr, at most 5% of them apart by more than 1e-3 lr + 1e-7."""
+    from tdnet_torch.models.io import load_model
+
+    want = dict(_variables_leaves(load_model(str(want_path))[1]["params"]))
+    got = dict(_variables_leaves(load_model(str(got_path))[1]["params"]))
+    n_params = n_apart = 0
+    worst_move = 0.0
+    for path, w in want.items():
+        worst_move = max(worst_move, float(abs(got[path] - before[path]).max()),
+                         float(abs(w - before[path]).max()))
+        n_apart += int((abs(got[path] - w) > 1e-3 * lr + 1e-7).sum())
+        n_params += w.size
+    require(worst_move <= lr * (1 + 1e-3) + 1e-7, f"{name}: a weight moved {worst_move}")
+    require(n_apart <= 0.05 * n_params, f"{name}: {n_apart} of {n_params} weights apart")
+    return {"weights_apart": n_apart, "weights": n_params}
+
+
+def _pipeline_library(dev, pages, boxes):
+    """PipelineTrainer at full size (bf16, PF_PIPE_BATCH pages in
+    PF_PIPE_MICRO microbatches, PF_STEPS steps: the step seconds), the
+    stages' placement, and one f32 step at the 256x384 bucket against the
+    plain gradient accumulation on the full model (num_positive exact, loss
+    and the mean gradient's norm before the optimizer step rtol 1e-4,
+    weights as _weights_against)."""
+    import numpy as np
+    import torch
+
+    from tdnet_torch.device import no_tf32
+    from tdnet_torch.models.retinanet import RetinaNet
+    from tdnet_torch.ops.anchors import anchors_for_shape
+    from tdnet_torch.ops.losses import focal, smooth_l1
+    from tdnet_torch.ops.targets import batched_anchor_targets
+    from tdnet_torch.parallel.pipeline import PipelineTrainer
+    from tdnet_torch.train.step import ClippedAdam, create_optimizer, create_train_state
+    from tdnet_torch.weights import random_variables
+
+    def squared_norm(params) -> float:
+        return sum(float(torch.linalg.vector_norm(p.grad.double())) ** 2
+                   for p in params if p.grad is not None)
+
+    class NormAdam(ClippedAdam):
+        """Keeps the squared norm of the gradients it is given, before its
+        clip: the pipeline's summed, 1/n-scaled gradient."""
+
+        def step(self, closure=None, **kw):
+            self.squared = squared_norm(p for g in self.param_groups for p in g["params"])
+            return super().step(closure, **kw)
+
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if dev.type != "cuda":
+        devices = (dev, dev)
+    elif cards >= 2:
+        devices = (torch.device("cuda", 0), torch.device("cuda", 1))
+    else:
+        devices = (torch.device("cuda", 0), torch.device("cuda", 0))
+        print("parallel_forms: one card: both pipeline stages on cuda:0", flush=True)
+
+    def float_batch(sides, batch_size, page_list, box_list):
+        from tdnet_torch.data.generator import BatchLoader, LoaderConfig
+
+        loader = BatchLoader(PageDataset(page_list, box_list), LoaderConfig(
+            batch_size=batch_size, min_side=sides[0], max_side=sides[1], shuffle=False))
+        return next(loader.epoch())
+
+    host = float_batch((MIN_SIDE, MAX_SIDE), PF_PIPE_BATCH, pages, boxes)
+    trainer = PipelineTrainer(RetinaNet(1, dtype=torch.bfloat16), 1, devices,
+                              optimizer_factory=create_optimizer(1e-5, 1e-3))
+    states = trainer.states_from_variables(smoke_variables())
+    step_s, metrics = [], []
+    for _ in range(PF_STEPS):
+        for d in set(devices):
+            sync(d)
+        t0 = time.monotonic()
+        states, m = trainer.step(states, host, num_microbatches=PF_PIPE_MICRO)
+        for d in set(devices):
+            sync(d)
+        step_s.append(time.monotonic() - t0)
+        metrics.append(m)
+        require(np.isfinite(m["loss"]) and m["num_positive"] > 0, f"pipeline step {m}")
+    for state, d in zip(states, devices):
+        tensors = list(state.model.parameters()) + [
+            v for st in state.optimizer.state.values() for v in st.values()
+            if torch.is_tensor(v) and v.dim()]
+        require(all(t.device == d for t in tensors), f"a stage tensor is off {d}")
+    del states, trainer
+
+    ppages, pboxes = synthetic_pages(2, 0, SEED + 3, sizes=(PARITY_PAGE, None),
+                                     with_boxes=True)
+    phost = float_batch(PARITY_SIDES, 2, ppages, pboxes)
+    variables = random_variables(1, "resnet50", seed=SEED)
+    with no_tf32():
+        trainer = PipelineTrainer(RetinaNet(1), 1, devices,
+                                  optimizer_factory=lambda p: NormAdam(p, lr=PF_LR,
+                                                                       clipnorm=1e-3))
+        pstates = trainer.states_from_variables(variables)
+        pstates, pm = trainer.step(pstates, phost, num_microbatches=2)
+        piped_norm = float(np.sqrt(sum(s.optimizer.squared for s in pstates)))
+        piped = trainer.merged_state_dict(pstates)
+        model = RetinaNet(1)
+        state = create_train_state(model, variables, device=devices[0],
+                                   optimizer=create_optimizer(PF_LR, 1e-3))
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(devices[0])
+                 for k, v in phost.items()}
+        anchors = torch.tensor(anchors_for_shape(PARITY_SIDES), dtype=torch.float32,
+                               device=devices[0])
+        losses, positives = [], 0
+        for k in range(2):
+            sl = slice(k, k + 1)
+            out = model(batch["images"][sl])
+            labels, reg = batched_anchor_targets(
+                anchors, batch["gt_boxes"][sl], batch["gt_labels"][sl],
+                batch["gt_mask"][sl], batch["image_hw"][sl], 1)
+            npos = (labels[..., -1] == 1).sum()
+            loss = (focal()(labels, out["classification"], npos)
+                    + smooth_l1()(reg, out["regression"], npos))
+            loss.backward()
+            losses.append(float(loss.detach()))
+            positives += int(npos)
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.mul_(0.5)
+        plain_norm = float(np.sqrt(squared_norm(
+            p for g in state.optimizer.param_groups for p in g["params"])))
+        state.optimizer.step()
+    require(pm["num_positive"] == positives > 0, f"num_positive {pm} vs {positives}")
+    require(abs(pm["loss"] - np.mean(losses)) <= 1e-4 * abs(np.mean(losses)),
+            f"loss {pm['loss']} vs {np.mean(losses)}")
+    require(abs(piped_norm - plain_norm) <= 1e-4 * plain_norm,
+            f"gradient norm {piped_norm} vs {plain_norm}")
+    before = {k: v.detach().cpu() for k, v in
+              create_train_state(RetinaNet(1), variables, device="cpu").model.state_dict().items()}
+    n_params = n_apart = 0
+    worst_move = 0.0
+    for k, w in model.state_dict().items():
+        if not w.is_floating_point():
+            continue
+        w, g = w.detach().cpu(), piped[k]
+        worst_move = max(worst_move, float((g - before[k]).abs().max()),
+                         float((w - before[k]).abs().max()))
+        n_apart += int(((g - w).abs() > 1e-3 * PF_LR + 1e-7).sum())
+        n_params += w.numel()
+    require(worst_move <= PF_LR * (1 + 1e-3) + 1e-7, f"pipeline f32: moved {worst_move}")
+    require(n_apart <= 0.05 * n_params, f"pipeline f32: {n_apart} of {n_params} apart")
+    return {"devices": [str(d) for d in devices], "bf16_step_seconds": step_s,
+            "bf16_metrics": metrics,
+            "f32_vs_accumulation": {"num_positive": positives, "loss": pm["loss"],
+                                    "loss_plain": float(np.mean(losses)),
+                                    "grad_norm": piped_norm, "grad_norm_plain": plain_norm,
+                                    "weights_apart": n_apart, "weights": n_params}}
+
+
+def phase_parallel_forms(dev):
+    """Pipeline, spatial and tensor parallelism on ResNet-50 at the 800x1344
+    bucket (``parallel/pipeline.py``, ``spatial.py``, ``tensor.py``):
+
+    - ``PipelineTrainer`` bf16 (``_pipeline_library``): cards 0 and 1 when
+      there are two, both stages on card 0 otherwise (printed); its f32 step
+      against the plain gradient accumulation; then ``train --pipeline`` with
+      per-epoch evaluation when there are two cards (skipped, and printed,
+      otherwise);
+    - DIST_RANKS child ranks (``_run_children``; gloo on one card, NCCL with
+      a card each): ``train --spatial 2 --device-normalize`` and ``train
+      --tensor-parallel 2 --device-normalize`` bf16 with per-epoch evaluation
+      (the NMS kernel), each form's f32 step, and ``evaluate
+      --device-normalize`` of each form's bundle (the stem and NMS kernels);
+    - this process: the plain f32 step (``--no-fused-stem``: the normalize
+      kernel and cuDNN, the forms' route) that the forms' f32 steps are held
+      against (num_positive exact, loss, its parts and grad_norm rtol 1e-4,
+      weights as ``_weights_against``).
+
+    Required launches, each run's counters set to 0 just before it and read
+    just after, in its process: the spatial and tensor steps the normalize
+    kernel on every rank at every step (a spatial rank on its band of rows,
+    a tensor rank on the whole pages) and neither stem kernel, every
+    per-epoch evaluation the NMS kernel, every ``evaluate`` the stem and NMS
+    kernels."""
+    import numpy as np
+    import torch
+
+    from tdnet_torch.bin import train
+    from tdnet_torch.data.image import write_image_bgr
+    from tdnet_torch.models.io import load_model, save_model
+    from tdnet_torch.models.retinanet import RetinaNet
+
+    t_phase = time.monotonic()
+    work = ROOT / "build" / "chip_smoke" / "parallel_forms"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    pages, boxes = synthetic_pages(PF_PAGES, 0, SEED + 23, sizes=(TRAIN_PAGE, None),
+                                   with_boxes=True)
+    rows = []
+    for i, (page, page_boxes) in enumerate(zip(pages, boxes)):
+        write_image_bgr(work / f"page{i}.png", page.astype(np.uint8))
+        rows.append([f"page{i}.png,{int(b[0])},{int(b[1])},{int(b[2])},{int(b[3])},table"
+                     for b in page_boxes])
+    (work / "annotations.csv").write_text("\n".join(sum(rows, [])) + "\n")
+    (work / "val.csv").write_text("\n".join(sum(rows[:2], [])) + "\n")
+    (work / "classes.csv").write_text("table,0\n")
+    with torch.device("meta"):
+        record = RetinaNet(1)
+    init = smoke_variables()
+    save_model(str(work / "init.tdn"), record, init)
+    seconds = {"prep": time.monotonic() - t_phase}
+
+    t0 = time.monotonic()
+    pipeline = _pipeline_library(dev, pages, boxes)
+    seconds["pipeline_library"] = time.monotonic() - t0
+
+    def argv(name, batch, steps, *extra, evaluation=False, f32=False):
+        return ["--device", dev.type, "--batch-size", str(batch), "--steps", str(steps),
+                "--epochs", "1", "--log-every", "1", "--no-snapshots",
+                "--weights", str(work / "init.tdn"), "--seed", "3", "--lr", str(PF_LR),
+                "--image-min-side", str(MIN_SIDE), "--image-max-side", str(MAX_SIDE),
+                "--metrics-path", str(work / f"{name}.jsonl"),
+                "--model-path", str(work / f"{name}.tdn"),
+                *([] if f32 else ["--bf16"]), *(["--evaluation"] if evaluation else []),
+                *extra, "csv", str(work / "annotations.csv"), str(work / "classes.csv"),
+                *(["--val-annotations", str(work / "val.csv")] if evaluation else [])]
+
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    said = []
+    t0 = time.monotonic()
+    with _deterministic():
+        one_runs = [("plain_f32", train.main,
+                     argv("plain_f32", PF_F32_BATCH, 1, "--device-normalize", "--no-fused-stem",
+                          f32=True))]
+        if cards >= 2:
+            one_runs.append(("pipeline", train.main,
+                             argv("pipeline", PF_PIPE_BATCH, PF_STEPS, "--pipeline",
+                                  evaluation=True)))
+        else:
+            print("parallel_forms: one card: train --pipeline skipped (it needs two)",
+                  flush=True)
+        one = _cli_runs(dev, one_runs, said)
+    seconds["one_process"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    spec = f"127.0.0.1:{_free_port()},{DIST_RANKS},"
+    forms = (("spatial", "--spatial"), ("tensor", "--tensor-parallel"))
+    ranks = _run_children(work, "form", [{"device": dev.type, "runs": [
+        *({"name": name, "tool": "train",
+           "argv": argv(name, PF_BATCH, PF_STEPS, flag, "2", "--device-normalize",
+                        "--distributed", spec + str(r), evaluation=True)}
+          for name, flag in forms),
+        *({"name": f"{name}_f32", "tool": "train",
+           "argv": argv(f"{name}_f32", PF_F32_BATCH, 1, flag, "2", "--device-normalize",
+                        "--distributed", spec + str(r), f32=True)}
+          for name, flag in forms),
+        *({"name": f"evaluate_{name}", "tool": "evaluate",
+           "argv": ["--device", dev.type, "--device-normalize", "--distributed", spec + str(r),
+                    "--image-min-side", str(MIN_SIDE), "--image-max-side", str(MAX_SIDE),
+                    "csv", str(work / "val.csv"), str(work / "classes.csv"),
+                    str(work / f"{name}.tdn")]}
+          for name, _ in forms)]} for r in range(DIST_RANKS)])
+    seconds["ranks"] = time.monotonic() - t0
+
+    backend = "nccl" if dev.type == "cuda" and cards >= DIST_RANKS else "gloo"
+    for r, got in enumerate(ranks):
+        require(len(got["backend"]) == 1 and f"rank {r} of {DIST_RANKS}, backend {backend}"
+                in got["backend"][0], f"rank {r}: {got['backend']}")
+        for run in got["runs"]:
+            n, name = run["launches"], run["name"]
+            if name.startswith("evaluate"):
+                ok = n["stem"] >= 1 and n["nms"] >= 1
+            else:
+                steps = 1 if name.endswith("f32") else PF_STEPS
+                ok = n["ingest"] >= steps and n["stem"] == n["stem_bwd"] == 0
+            if name in ("spatial", "tensor"):
+                ok = ok and n["nms"] >= 1  # the per-epoch evaluation
+            require(ok, f"rank {r} {name}: launches {n}, said {run['stdout'][-8:]}")
+    if cards >= 2:
+        n = one[1]["launches"]
+        require(n["nms"] >= 1 and n["ingest"] == n["stem"] == n["stem_bwd"] == 0,
+                f"train --pipeline launches {n}")
+
+    recs = {n: [json.loads(x) for x in (work / f"{n}.jsonl").read_text().splitlines()
+                if '"step"' in x]
+            for n in ("plain_f32", "spatial", "tensor", "spatial_f32", "tensor_f32",
+                      *(("pipeline",) if cards >= 2 else ()))}
+    before = dict(_variables_leaves(init["params"]))
+    m1 = recs["plain_f32"][0]
+    f32 = {}
+    for name in ("spatial_f32", "tensor_f32"):
+        m2 = recs[name][0]
+        require(m1["num_positive"] == m2["num_positive"] > 0, f"num_positive {m1}, {m2}")
+        for k in ("loss", "classification_loss", "regression_loss", "grad_norm"):
+            require(abs(m1[k] - m2[k]) <= 1e-4 * abs(m1[k]), f"{name} {k}: {m1[k]}, {m2[k]}")
+        f32[name] = {"metrics": m2, **_weights_against(
+            name, work / f"{name}.tdn", work / "plain_f32.tdn", before, PF_LR)}
+    for name in ("spatial", "tensor"):
+        require(len(recs[name]) == PF_STEPS and all(np.isfinite(r["loss"])
+                                                     for r in recs[name]),
+                f"{name}: {recs[name]}")
+        load_model(str(work / f"{name}.tdn"))  # the bundle reads back
+
+    def step_seconds(name, batch):
+        return [batch / r["images_per_sec"] for r in recs[name]]
+
+    launches = {}
+    for got in [{"runs": one}] + ranks:
+        for run in got["runs"]:
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    for f in work.glob("*.tdn"):
+        f.unlink()  # 139 MiB each
+    emit({"phase": "parallel_forms", "ok": True, "ranks": DIST_RANKS, "backend": backend,
+          "cards": cards, "model": "resnet50 retinanet, 1 class, 800x1344",
+          "pipeline": pipeline,
+          "train_pipeline": ("ran" if cards >= 2 else "skipped: one card"),
+          "step_seconds": {"spatial_rank0": step_seconds("spatial", PF_BATCH),
+                           "tensor_rank0": step_seconds("tensor", PF_BATCH),
+                           **({"pipeline_cli": step_seconds("pipeline", PF_PIPE_BATCH)}
+                              if cards >= 2 else {})},
+          "f32_step": {"plain": m1, **f32},
+          "seconds": {**seconds, "one": {r["name"]: r["seconds"] for r in one},
+                      **{f"rank{i}": {r["name"]: r["seconds"] for r in x["runs"]}
+                         for i, x in enumerate(ranks)}},
+          "launches": {"one": {r["name"]: r["launches"] for r in one},
+                       **{f"rank{i}": {r["name"]: r["launches"] for r in x["runs"]}
+                          for i, x in enumerate(ranks)}},
+          "launches_total": launches,
+          "phase_seconds": time.monotonic() - t_phase})
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--distributed-child":
         return _distributed_child(sys.argv[2])
@@ -3752,6 +4092,8 @@ def main() -> int:
         page_launches = phase_pages(dev)
         phase = "distributed"
         dist_launches = phase_distributed(dev)
+        phase = "parallel_forms"
+        forms_launches = phase_parallel_forms(dev)
     except Exception as exc:  # report the failed phase, print no result
         import traceback
 
@@ -3764,12 +4106,13 @@ def main() -> int:
     # backbone families, serving, the CLIs, the table workflow, the JPEG and
     # BMP pages through the dataset CLIs, the other page formats through
     # train, predict and serve, data parallelism through the train and
-    # evaluate CLIs in child ranks); conv1x1 (B7) is wired into no model, in
+    # evaluate CLIs in child ranks, the pipeline, spatial and tensor forms);
+    # conv1x1 (B7) is wired into no model, in
     # the JAX package too, so no path launches it
     runs = (launches, train_launches, train_cli_launches, init_launches,
             soft_launches, r101_launches, backbone_launches, serve_launches,
             cli_launches, table_launches, dataset_launches, page_launches,
-            dist_launches)
+            dist_launches, forms_launches)
     sources = {
         "ingest": ("tdnet_torch/csrc/ingest.cu", "tdnet/ops/pallas_ingest.py:137"),
         "stem": ("tdnet_torch/csrc/stem.cu", "tdnet/ops/pallas_stem.py:676"),

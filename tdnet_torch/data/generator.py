@@ -88,7 +88,9 @@ class LoaderConfig:
     transform_parameters: TransformParameters = field(default_factory=TransformParameters)
     # multi-process slicing of every global batch: every rank computes the
     # same global batch sequence and loads its strided slice of each. None
-    # resolves from the process group (parallel/mesh.py) at loader build
+    # resolves from the process group (parallel/mesh.py) at loader build.
+    # Under a 2-D grid (parallel/mesh.py Grid) the ranks of a row load the
+    # same pages: pass the grid's data_index and data_count, not the rank
     process_index: Optional[int] = None
     process_count: Optional[int] = None
     # host decode/resize threads; 0 or 1 = in the iterator's thread

@@ -25,6 +25,7 @@ from torch import nn
 
 from tdnet_torch.models.layers import Conv2d, FrozenBatchNorm
 from tdnet_torch.models.resnet import StemConv, max_pool_same
+from tdnet_torch.models.vgg import pool_valid
 
 __all__ = ["DenseNet", "DENSENET_BLOCKS"]
 
@@ -83,5 +84,5 @@ class DenseNet(nn.Module):
                 taps.append(x)
             if b != len(self.block_sizes) - 1:
                 x = torch.relu(getattr(self, f"transition{b + 2}_bn")(x))
-                x = F.avg_pool2d(getattr(self, f"transition{b + 2}_conv")(x), 2, stride=2)
+                x = pool_valid(getattr(self, f"transition{b + 2}_conv")(x), F.avg_pool2d)
         return tuple(taps)

@@ -7,6 +7,12 @@ Activations are NCHW tensors in ``channels_last`` memory (an NHWC buffer
 seen through ``.permute(0, 3, 1, 2)``); parameters are float32 and are
 rounded to the activation dtype where they are used, as flax's
 ``dtype``/``param_dtype`` split does.
+
+The same modules carry the 2-D parallel forms: inside
+``parallel/spatial.py`` ``spatial_bands`` a conv and the resize compute
+this rank's band of rows from the global geometry, and a conv or dense
+layer whose weight ``parallel/tensor.py`` ``shard_state`` cut (its ``tp``
+flag) computes its output-channel slice and gathers the channels.
 """
 
 from __future__ import annotations
@@ -19,6 +25,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tdnet_torch.parallel import spatial
+from tdnet_torch.parallel.tensor import column_parallel
 
 __all__ = ["FrozenBatchNorm", "recording_bn_inputs", "Conv2d", "Dense",
            "conv2d", "same_pads", "resize_nearest_like"]
@@ -102,6 +111,8 @@ class Conv2d(nn.Module):
     ``feature_group_count``: a depthwise conv's weight is (C, 1, k, k), the
     bridge's image of flax's (k, k, 1, C)."""
 
+    tp = None  # parallel/tensor.py: the grid whose model axis cut the weight
+
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  bias: bool = True, groups: int = 1):
         super().__init__()
@@ -110,8 +121,32 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = functools.partial(conv2d, weight=self.weight, bias=self.bias,
-                                 stride=self.stride, groups=self.groups)
+        if self.tp is None:
+            return self._conv(x, self.weight, self.bias, self.groups)
+        # column-parallel: this rank's C_out slice, gathered; the replicated
+        # bias on the gathered channels
+        depthwise = self.groups > 1
+        groups = self.weight.shape[0] if depthwise else 1
+        y = column_parallel(x, lambda v: self._conv(v, self.weight, None, groups),
+                            self.tp, depthwise=depthwise)
+        return y if self.bias is None else y + self.bias.to(y.dtype)[:, None, None]
+
+    def _conv(self, x, weight, bias, groups):
+        conv = functools.partial(conv2d, weight=weight, bias=bias,
+                                 stride=self.stride, groups=groups)
+        bands = spatial.active()
+        if bands is not None and x.shape[2] == 0 and self.k == self.stride == 1:
+            # an empty band: one row of padding through the conv, dropped,
+            # so the band stays in the graph (its fetches' backwards run)
+            return conv(F.pad(x, (0, 0, 0, 1)))[:, :, :0]
+        if bands is not None and not (self.k == 1 and self.stride == 1):
+            # this rank's band of output rows: pads and stride phase from
+            # the global height
+            ph = same_pads(bands.height(x), self.k, self.stride)
+            pw = same_pads(x.shape[3], self.k, self.stride)
+            window, empty = bands.window(x, self.k, self.stride, ph, pw)
+            y = conv(window)
+            return y[:, :, :0] if empty else y
         if self.k == 1:
             return conv(x)
         ph = same_pads(x.shape[2], self.k, self.stride)
@@ -128,18 +163,29 @@ class Dense(nn.Module):
     the input dtype at the call, like flax ``nn.Dense(dtype=...,
     param_dtype=float32)``."""
 
+    tp = None  # parallel/tensor.py: the grid whose model axis cut the weight
+
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        if self.tp is None:
+            return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        y = column_parallel(x, lambda v: F.linear(v, self.weight.to(v.dtype)),
+                            self.tp, channel_dim=-1)
+        return y + self.bias.to(y.dtype)
 
 
 def resize_nearest_like(x: torch.Tensor, target_hw) -> torch.Tensor:
     """Nearest resize of NCHW ``x`` to (H, W) with TF1 semantics
-    (align_corners=False): gather source index floor(dst * in / out)."""
+    (align_corners=False): gather source index floor(dst * in / out). In
+    the band form ``target_hw`` is the target band's shape, whose global
+    height the band context knows by its width."""
+    bands = spatial.active()
+    if bands is not None:
+        return bands.resize_rows(x, target_hw)
     h_in, w_in = x.shape[2], x.shape[3]
     h_out, w_out = int(target_hw[0]), int(target_hw[1])
     if (h_in, w_in) == (h_out, w_out):

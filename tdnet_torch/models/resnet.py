@@ -34,6 +34,8 @@ from torch import nn
 
 from tdnet_torch.models.layers import Conv2d, Dense, FrozenBatchNorm, conv2d, same_pads
 from tdnet_torch.ops.block import fused_bottleneck_chain, kmajor_weights, supports_block
+from tdnet_torch.parallel import spatial
+from tdnet_torch.parallel.tensor import column_parallel
 
 __all__ = ["STAGE_SIZES", "Bottleneck", "StemConv", "ResNet", "max_pool_same"]
 
@@ -45,7 +47,14 @@ STAGE_SIZES = {
 
 
 def max_pool_same(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
-    """k x k / s max-pool with TF 'SAME' padding (pads hold -inf)."""
+    """k x k / s max-pool with TF 'SAME' padding (pads hold -inf); in the
+    band form, this rank's band of output rows."""
+    bands = spatial.active()
+    if bands is not None:
+        ph, pw = same_pads(bands.height(x), k, s), same_pads(x.shape[3], k, s)
+        window, empty = bands.window(x, k, s, ph, pw, fill=float("-inf"))
+        y = F.max_pool2d(window, k, stride=s)
+        return y[:, :, :0] if empty else y
     ph = same_pads(x.shape[2], k, s)
     pw = same_pads(x.shape[3], k, s)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
@@ -80,20 +89,35 @@ class Bottleneck(nn.Module):
         y = torch.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         if self.se:
-            s = torch.relu(self.se_reduce(y.mean(dim=(2, 3))))
+            bands = spatial.active()
+            mean = bands.mean_hw(y) if bands is not None else y.mean(dim=(2, 3))
+            s = torch.relu(self.se_reduce(mean))
             y = y * torch.sigmoid(self.se_expand(s))[:, :, None, None]
         shortcut = self.bn_shortcut(self.conv_shortcut(x)) if self.projection else x
         return torch.relu(y + shortcut)
 
 
 class StemConv(nn.Module):
-    """Explicit pad 3 + VALID 7x7/2 conv, 3 -> 64, no bias."""
+    """Explicit pad 3 + VALID 7x7/2 conv, 3 -> 64, no bias (band and
+    column-parallel forms as ``layers.Conv2d``)."""
+
+    tp = None  # parallel/tensor.py: the grid whose model axis cut the weight
 
     def __init__(self, features: int = 64):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(features, 3, 7, 7))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return column_parallel(x, self._conv, self.tp)
+        return self._conv(x)
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        bands = spatial.active()
+        if bands is not None:
+            window, empty = bands.window(x, 7, 2, (3, 3), (3, 3))
+            y = conv2d(window, self.weight, stride=2)
+            return y[:, :, :0] if empty else y
         return conv2d(x, self.weight, stride=2, padding=3)
 
 

@@ -12,7 +12,12 @@
   (1, 1) and its cols (0, 1).
 - Subnets: 4 x [3x3(256) + ReLU] + head, weights shared across levels.
 - Each level's output is flattened in NHWC order (the anchor order) and the
-  levels are concatenated P3 -> P7.
+  levels are concatenated P3 -> P7. :func:`retinanet_tail` (the reference's
+  ``apply_retinanet_tail``) is FPN, subnets and flatten in one function:
+  ``RetinaNet.forward`` and the pipeline's head stage
+  (``parallel/pipeline.py``) both call it. In the band form
+  (``parallel/spatial.py``) it gathers each level's head outputs over the
+  spatial group before the flatten.
 
 ``forward`` takes NHWC images (or, with ``stem_input``, the NHWC pooled stem
 activations: ResNets and SE-ResNets only) like the flax model and runs NCHW
@@ -36,8 +41,10 @@ from tdnet_torch.models.layers import Conv2d, resize_nearest_like
 from tdnet_torch.models.mobilenet import MobileNet
 from tdnet_torch.models.resnet import STAGE_SIZES, ResNet
 from tdnet_torch.models.vgg import VGG, VGG_STAGES
+from tdnet_torch.parallel.spatial import gather_rows
 
-__all__ = ["RetinaNet", "FPN", "Subnet", "build_backbone", "takes_fused_stem"]
+__all__ = ["RetinaNet", "FPN", "Subnet", "build_backbone", "takes_fused_stem",
+           "retinanet_tail"]
 
 
 def takes_fused_stem(backbone_name: str) -> bool:
@@ -117,6 +124,25 @@ class Subnet(nn.Module):
         return self.head(x)
 
 
+def retinanet_tail(fpn: FPN, regression_submodel: Subnet,
+                   classification_submodel: Subnet, c3, c4, c5, num_classes: int,
+                   output_dtype: Optional[torch.dtype] = torch.float32
+                   ) -> Dict[str, torch.Tensor]:
+    """FPN + shared subnets + the per-level flatten from the NCHW backbone
+    taps, the reference's ``apply_retinanet_tail``: (B, N, 4) regression
+    and (B, N, C) logits in ``output_dtype`` (None: the heads' dtype)."""
+    features = fpn(c3, c4, c5)
+    b = c3.shape[0]
+    flat = lambda t, n: gather_rows(t).permute(0, 2, 3, 1).reshape(b, -1, n)
+    regression = torch.cat([flat(regression_submodel(f), 4) for f in features], dim=1)
+    classification = torch.cat(
+        [flat(classification_submodel(f), num_classes) for f in features], dim=1)
+    if output_dtype is not None:
+        regression = regression.to(output_dtype)
+        classification = classification.to(output_dtype)
+    return {"regression": regression, "classification": classification}
+
+
 class RetinaNet(nn.Module):
     """NHWC images -> {"regression": (B, N, 4), "classification": (B, N, C)
     logits}. ``dtype`` is the compute dtype; ``output_dtype=None`` keeps
@@ -167,15 +193,6 @@ class RetinaNet(nn.Module):
                                        block_kernel=block_kernel)
         else:
             c3, c4, c5 = self.backbone(x)
-        features = self.fpn(c3, c4, c5)
-        b = images.shape[0]
-        flat = lambda t, n: t.permute(0, 2, 3, 1).reshape(b, -1, n)
-        regression = torch.cat(
-            [flat(self.regression_submodel(f), 4) for f in features], dim=1)
-        classification = torch.cat(
-            [flat(self.classification_submodel(f), self.num_classes)
-             for f in features], dim=1)
-        if self.output_dtype is not None:
-            regression = regression.to(self.output_dtype)
-            classification = classification.to(self.output_dtype)
-        return {"regression": regression, "classification": classification}
+        return retinanet_tail(self.fpn, self.regression_submodel,
+                              self.classification_submodel, c3, c4, c5,
+                              self.num_classes, self.output_dtype)

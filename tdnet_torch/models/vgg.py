@@ -15,8 +15,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tdnet_torch.models.layers import Conv2d
+from tdnet_torch.parallel import spatial
 
-__all__ = ["VGG", "VGG_STAGES"]
+__all__ = ["VGG", "VGG_STAGES", "pool_valid"]
 
 # convs a block
 VGG_STAGES = {
@@ -24,6 +25,17 @@ VGG_STAGES = {
     "vgg19": (2, 2, 4, 4, 4),
 }
 _WIDTHS = (64, 128, 256, 512, 512)
+
+
+def pool_valid(x: torch.Tensor, pool) -> torch.Tensor:
+    """A 2x2/2 VALID pool (``F.max_pool2d`` or ``F.avg_pool2d``; odd sizes
+    floor); in the band form, this rank's band of output rows."""
+    bands = spatial.active()
+    if bands is None:
+        return pool(x, 2, stride=2)
+    window, empty = bands.window(x, 2, 2, (0, 0), (0, 0))
+    y = pool(window, 2, stride=2)
+    return y[:, :, :0] if empty else y
 
 
 class VGG(nn.Module):
@@ -47,7 +59,7 @@ class VGG(nn.Module):
         for block, n_convs in enumerate(self.stage_sizes):
             for i in range(n_convs):
                 x = torch.relu(getattr(self, f"block{block + 1}_conv{i + 1}")(x))
-            x = F.max_pool2d(x, 2, stride=2)
+            x = pool_valid(x, F.max_pool2d)
             if block >= 2:
                 taps.append(x)
         return tuple(taps)

@@ -2,8 +2,9 @@
 
 Replaces ``tdnet/ops/pallas_ingest.py`` ``normalize_uint8_rows`` (Pallas
 kernel ``_kernel``; wrappers ``normalize_uint8_flat`` / ``normalize_uint8``,
-and ``normalize_uint8_packed_sharded``, the form for a batch sharded over
-the ranks of a data-parallel run: :func:`normalize_uint8_packed_sharded`).
+and ``normalize_uint8_packed_sharded``, the forms for a batch sharded over
+the ranks of a data-parallel run and for a (data, spatial) grid's bands
+of rows: :func:`normalize_uint8_packed_sharded`).
 It carries the Predictor's uint8 route when the fused stem is off. The
 kernel walks its rows as one flat array, so any row width divisible by 3
 works: the TPU's fixed 3072-byte rows are kept only where they divide.
@@ -28,7 +29,8 @@ import torch
 
 from tdnet_torch import _build
 from tdnet_torch.data.image import CAFFE_MEAN_BGR
-from tdnet_torch.parallel.mesh import check_shard, process_count
+from tdnet_torch.parallel.mesh import Grid, check_shard, process_count
+from tdnet_torch.parallel.spatial import image_band
 
 __all__ = [
     "LAUNCHES",
@@ -120,14 +122,35 @@ def normalize_uint8_rows(mat: torch.Tensor, mode: str = "caffe",
 
 def normalize_uint8_packed_sharded(packed: torch.Tensor, mode: str = "caffe",
                                    out_dtype=torch.float32,
-                                   global_batch: Optional[int] = None) -> torch.Tensor:
-    """The data-parallel form, reference ``normalize_uint8_packed_sharded``
-    on its 1-D data mesh: ``packed`` (b, H, W3) is this rank's shard of a
-    batch of ``global_batch`` rows (default b x the ranks), which must
-    divide over the ranks (else it raises, as the reference does). Each
-    rank normalizes its own shard with the kernel; the elementwise op
-    needs no collective. -> (b, H, W3 // 3, 3)."""
+                                   global_batch: Optional[int] = None,
+                                   grid: Optional[Grid] = None) -> torch.Tensor:
+    """The sharded forms, reference ``normalize_uint8_packed_sharded``.
+
+    On its 1-D data mesh (``grid`` None): ``packed`` (b, H, W3) is this
+    rank's shard of a batch of ``global_batch`` rows (default b x the
+    ranks), which must divide over the ranks (else it raises, as the
+    reference does). Each rank normalizes its own shard with the kernel;
+    the elementwise op needs no collective. -> (b, H, W3 // 3, 3).
+
+    On a (data, spatial) grid (``parallel/spatial.py``): ``packed`` holds
+    this rank's b pages of a global batch of b x ``grid.data_count``, and
+    the rank normalizes its band of their rows with the kernel ->
+    (b, band rows, W3 // 3, 3). This form keeps the reference's
+    exact-division rule (the batch over the data axis, H over the spatial
+    axis) and its refusal of other grids; the train step normalizes any
+    band with :func:`normalize_uint8_rows` itself."""
     b, h, w3 = packed.shape
-    check_shard(b, b * process_count() if global_batch is None else global_batch)
-    out = normalize_uint8_rows(packed.reshape(b * h, w3), mode, out_dtype)
-    return out.reshape(b, h, w3 // 3, 3)
+    if grid is None:
+        check_shard(b, b * process_count() if global_batch is None else global_batch)
+        out = normalize_uint8_rows(packed.reshape(b * h, w3), mode, out_dtype)
+        return out.reshape(b, h, w3 // 3, 3)
+    if grid.axis != "spatial":
+        raise ValueError(f"unsupported mesh axes {grid.axis_names} (expected ('data',) "
+                         "or ('data', 'spatial'))")
+    nd, ns = grid.data_count, grid.size
+    total = b * nd if global_batch is None else global_batch
+    if total % nd or h % ns:
+        raise ValueError(f"(batch {total}, H {h}) does not divide over the "
+                         f"(data={nd}, spatial={ns}) mesh")
+    out = normalize_uint8_rows(image_band(packed, grid).reshape(-1, w3), mode, out_dtype)
+    return out.reshape(b, h // ns, w3 // 3, 3)

@@ -29,8 +29,9 @@ is no switch to another backend.
 from __future__ import annotations
 
 import socket
+from dataclasses import dataclass
 from datetime import timedelta
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +45,8 @@ __all__ = [
     "barrier",
     "check_shard",
     "process_allgather_rows",
+    "Grid",
+    "create_grid",
 ]
 
 _TIMEOUT = timedelta(minutes=10)
@@ -121,6 +124,47 @@ def check_shard(local_rows: int, global_batch: int) -> None:
     if local_rows * n != global_batch:
         raise ValueError(f"this rank holds {local_rows} rows of a batch of "
                          f"{global_batch} over {n} ranks")
+
+
+@dataclass(frozen=True)
+class Grid:
+    """This rank's place in a 2-D (data, ``axis``) grid of the ranks.
+
+    ``axis`` is "spatial" or "model"; ``size`` ranks a row share its pages
+    (``index`` is this rank's place in the row), ``data_count`` rows split
+    the global batch (``data_index`` is this rank's row). ``group`` is the
+    row's process group, ``data_group`` the column's; both None for one
+    process, where every collective of the forms is the identity."""
+
+    axis: str
+    size: int
+    index: int
+    data_index: int
+    data_count: int
+    group: object = None
+    data_group: object = None
+
+    @property
+    def axis_names(self) -> Tuple[str, str]:
+        return ("data", self.axis)
+
+
+def create_grid(n: int, axis: str) -> Grid:
+    """The (data, ``axis``) grid of ``n`` ranks along ``axis`` over every
+    rank of the process group (one process: a 1-rank grid), with the
+    reference's refusal when ``n`` does not divide the ranks. Call it on
+    every rank, in the same order: it makes the subgroups."""
+    world = process_count()
+    if n < 1 or world % n:
+        raise ValueError(f"{axis} axis {n} must divide the {world} devices")
+    rank = process_index()
+    rows = world // n
+    if world == 1:
+        return Grid(axis, 1, 0, 0, 1)
+    row_groups = [dist.new_group([d * n + s for s in range(n)]) for d in range(rows)]
+    col_groups = [dist.new_group([d * n + s for d in range(rows)]) for s in range(n)]
+    d, s = divmod(rank, n)
+    return Grid(axis, n, s, d, rows, row_groups[d], col_groups[s])
 
 
 def _collective_device() -> torch.device:

@@ -13,7 +13,14 @@ a ZeRO-1 optimizer (``parallel/zero.py``) first gathers its partitions on
 rank 0, rank 0 alone writes, and the other ranks wait at a barrier, so
 the checkpoint is written once and is in place on every rank's return.
 ``restore`` reads the same file on every rank; a ZeRO-1 optimizer keeps
-its own partition of the Adam state.
+its own partition of the Adam state. A tensor-parallel state
+(``parallel/tensor.py``) gathers its whole parameters and moments over the
+model group before rank 0 writes, so the checkpoint is a plain run's, and
+``restore`` cuts them again.
+
+A snapshot of a ``--pipeline`` run holds the merged variables and an empty
+optimizer state (``has_opt_state`` is false): ``restore_weights`` or
+``weights`` read it.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import torch
 from torch.distributed.optim import ZeroRedundancyOptimizer
 
 from tdnet_torch.parallel.mesh import barrier, process_index
+from tdnet_torch.parallel.tensor import (full_optimizer_state, full_state_dict,
+                                         shard_optimizer_state, shard_state_dict)
 
 __all__ = ["Checkpointer"]
 
@@ -34,10 +43,10 @@ _FILE = "state.pt"
 _BATCH_STATS = ("mean", "var")
 
 
-def _split(model):
-    """model state -> (params, batch_stats), keyed by module path."""
+def _split(state_dict):
+    """a model's state dict -> (params, batch_stats), keyed by module path."""
     params, stats = {}, {}
-    for key, value in model.state_dict().items():
+    for key, value in state_dict.items():
         target = stats if key.rsplit(".", 1)[-1] in _BATCH_STATS else params
         target[key] = value.detach().cpu().clone()
     return params, stats
@@ -59,21 +68,34 @@ class Checkpointer:
     def save(self, step: int, state) -> None:
         """Save {params, batch_stats, opt_state, step, lr}; returns when the
         checkpoint is in place. Call it on every rank."""
-        if isinstance(state.optimizer, ZeroRedundancyOptimizer):
-            state.optimizer.consolidate_state_dict(to=0)
+        sharding = getattr(state, "sharding", None)
+        if sharding is not None:
+            whole = (full_state_dict(state.model, sharding),
+                     full_optimizer_state(state.optimizer, state.model, sharding))
+        else:
+            if isinstance(state.optimizer, ZeroRedundancyOptimizer):
+                state.optimizer.consolidate_state_dict(to=0)
+            whole = None
         if process_index() == 0:
-            self._write(step, state)
+            if whole is None:
+                whole = (state.model.state_dict(), state.optimizer.state_dict())
+            self._write(step, state, *whole)
         barrier()
 
-    def _write(self, step: int, state) -> None:
-        params, stats = _split(state.model)
-        opt = state.optimizer.state_dict()
+    def save_variables(self, step: int, state_dict: dict) -> None:
+        """Save a model state dict with an empty optimizer state (a
+        ``--pipeline`` run's merged variables); one process."""
+        self._write(step, None, state_dict, {"state": {}, "param_groups": []})
+
+    def _write(self, step: int, state, model_state: dict, opt: dict) -> None:
+        params, stats = _split(model_state)
         payload = {
             "params": params,
             "batch_stats": stats,
             "opt_state": _to_cpu(opt),
-            "step": int(state.step),
-            "lr": float(state.optimizer.param_groups[0]["lr"]),
+            "step": int(step if state is None else state.step),
+            "lr": (float(state.optimizer.param_groups[0]["lr"]) if state is not None
+                   else None),
         }
         tmp = tempfile.mkdtemp(dir=self.directory, prefix=".tmp-")
         try:
@@ -108,9 +130,13 @@ class Checkpointer:
         if not payload["opt_state"]["state"]:
             raise ValueError("the checkpoint has no optimizer state; use "
                              "restore_weights")
-        state.model.load_state_dict({**payload["params"],
-                                     **payload["batch_stats"]})
-        state.optimizer.load_state_dict(payload["opt_state"])
+        weights, opt = {**payload["params"], **payload["batch_stats"]}, payload["opt_state"]
+        sharding = getattr(state, "sharding", None)
+        if sharding is not None:
+            weights = shard_state_dict(weights, sharding)
+            opt = shard_optimizer_state(opt, state.optimizer, state.model, sharding)
+        state.model.load_state_dict(weights)
+        state.optimizer.load_state_dict(opt)
         for group in state.optimizer.param_groups:
             group["lr"] = payload["lr"]
         state.step = int(payload["step"])
@@ -122,9 +148,13 @@ class Checkpointer:
 
     def restore_weights(self, model, step: Optional[int] = None):
         """Load only {params, batch_stats} into ``model``; returns it."""
-        payload = self._load(step)
-        model.load_state_dict({**payload["params"], **payload["batch_stats"]})
+        model.load_state_dict(self.weights(step))
         return model
+
+    def weights(self, step: Optional[int] = None) -> dict:
+        """The snapshot's model state dict ({params, batch_stats})."""
+        payload = self._load(step)
+        return {**payload["params"], **payload["batch_stats"]}
 
 
 def _to_cpu(obj):

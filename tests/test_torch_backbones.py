@@ -426,9 +426,9 @@ def test_train_step_matches_reference():
     jg = dict(_leaves(jax.tree.map(np.asarray, new.opt_state[0]["g"])))
 
     class GrabAdam(ClippedAdam):  # keeps the raw (pre-clip) gradients
-        def step(self, closure=None):
+        def step(self, closure=None, **kw):
             self.raw = [p.grad.clone() for g in self.param_groups for p in g["params"]]
-            return super().step(closure)
+            return super().step(closure, **kw)
 
     model = RetinaNet(1, "mobilenet_0.25")
     tstate = create_train_state(model, variables, device="cpu",

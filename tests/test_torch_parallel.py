@@ -249,9 +249,9 @@ def _rank_main(rank, port, work):
     variables = random_variables(1, BACKBONE, seed=0, feature_size=FEATURES)
 
     class GrabAdam(ClippedAdam):
-        def step(self, closure=None):
+        def step(self, closure=None, **kw):
             self.raw = [p.grad.clone() for g in self.param_groups for p in g["params"]]
-            return super().step(closure)
+            return super().step(closure, **kw)
 
     model = RetinaNet(1, BACKBONE, feature_size=FEATURES)
     state = create_train_state(model, variables, device="cpu",
@@ -299,24 +299,25 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_ranks(script, work, extra=(), timeout=600):
-    """Run ``script rank port work`` as RANKS processes, and ``script role
-    port work`` for each role of ``extra`` beside them; -> the ranks' JSON
-    results and outputs. Raises with a process's output when it fails."""
+def spawn_ranks(script, work, extra=(), timeout=600, ranks=RANKS):
+    """Run ``script rank port work`` as ``ranks`` processes, and ``script
+    role port work`` for each role of ``extra`` beside them; -> the ranks'
+    JSON results and outputs. Raises with a process's output when it
+    fails."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
                GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
     port = str(_free_port())
     procs = [subprocess.Popen([sys.executable, script, str(r), port, str(work)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in (*range(RANKS), *extra)]
+             for r in (*range(ranks), *extra)]
 
     def wait():
         outs = [p.communicate(timeout=timeout)[0] for p in procs]
         for p, text in zip(procs, outs):
             assert p.returncode == 0, f"process {p.args[2]} failed:\n{text[-4000:]}"
-        return ([json.loads((work / f"rank{r}.json").read_text()) for r in range(RANKS)],
-                outs[:RANKS])
+        return ([json.loads((work / f"rank{r}.json").read_text()) for r in range(ranks)],
+                outs[:ranks])
 
     return wait
 

@@ -259,9 +259,9 @@ def test_clipped_adam_matches_optax():
 class _GrabAdam(ClippedAdam):
     """Keeps the raw (pre-clip) gradients of the last step."""
 
-    def step(self, closure=None):
+    def step(self, closure=None, **kw):
         self.raw = [p.grad.clone() for g in self.param_groups for p in g["params"]]
-        return super().step(closure)
+        return super().step(closure, **kw)
 
 
 def _jax_step(variables, batch):

@@ -366,30 +366,36 @@ def test_load_initial_weights_equals_reference(two_class, port_run, capsys):
 
 
 UNPORTED = [
-    (["--spatial", "2"], "A16.4"),
-    (["--tensor-parallel", "2"], "A16.4"),
-    (["--pipeline"], "A16.3"),
-    (["--microbatches", "2"], "A16.3"),
+    (["--spatial", "2"], "--zero needs the plain 1-D data mesh"),
+    (["--tensor-parallel", "2"], "--zero needs the plain 1-D data mesh"),
+    (["--pipeline"], "--pipeline cannot be combined with --zero"),
+    (["--microbatches", "2", "--pipeline"], "--pipeline cannot be combined with --zero"),
 ]
 
 
-@pytest.mark.parametrize("flags,item", UNPORTED, ids=[" ".join(f) for f, _ in UNPORTED])
+@pytest.mark.parametrize("flags,item", UNPORTED, ids=[" ".join(f[:2]) for f, _ in UNPORTED])
 def test_unported_flags_raise_naming_their_item(flags, item):
-    with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {item}\)"):
-        train.main(["--device", "cpu", *flags, "csv", "missing.csv", "classes.csv"])
+    """The flags that once raised NotImplementedError naming their ROADMAP
+    item (A16.3, A16.4) are ported: with --zero each is refused with the
+    reference's message, and no NotImplementedError remains."""
+    with pytest.raises(SystemExit, match=item):
+        train.main(["--device", "cpu", "--zero", *flags, "csv", "missing.csv",
+                    "classes.csv"])
 
 
 def test_unported_flags_at_their_defaults_pass():
-    """At their defaults the unported flags pass, and --zero and
+    """At their defaults the parallel flags make no grid, and --zero and
     --distributed parse; --zero with another parallel form is refused with
-    the reference's message, and a malformed --distributed with its
-    usage."""
+    the reference's message, an axis that does not divide the one rank
+    with the reference's, and a malformed --distributed with its usage."""
     args = train.parse_args(["--bn-warmup", "0", "--spatial", "1", "--tensor-parallel", "1",
                              "--zero", "--weights", "w.tdn", "csv", "a.csv", "c.csv"])
-    train._refuse_unported(args)
+    assert train._make_grid(args) is None
     for flags in (["--spatial", "2"], ["--tensor-parallel", "2"]):
         with pytest.raises(SystemExit, match="--zero needs the plain 1-D data mesh"):
             train.main(["--device", "cpu", "--zero", *flags, "csv", "a.csv", "c.csv"])
+    with pytest.raises(SystemExit, match="--spatial: spatial axis 2 must divide the 1 devices"):
+        train.main(["--device", "cpu", "--spatial", "2", "csv", "a.csv", "c.csv"])
     with pytest.raises(SystemExit, match="coordinator:port,num_processes,process_id"):
         train.main(["--device", "cpu", "--distributed", "x:1,two,0", "csv", "a.csv", "c.csv"])
 
