@@ -183,6 +183,10 @@ PAGES_MATCH_PX = 0.005  # the 2-decimal rounding of a JSON box
 DIST_RANKS, DIST_BATCH, DIST_STEPS, DIST_PAGES = 2, 2, 2, 8
 DIST_NORMALIZE_BACKBONE = "mobilenet"  # a family that takes the normalize kernel
 DIST_EVAL_GT = 3  # GT boxes a golden page: the model's own best (phase_distributed)
+# the golden pages phase_distributed evaluates on: the eight of slice 15,
+# which both routes read
+DIST_EVAL_PAGES = ("cmyk.jpg", "g4.tif", "jpeg_ycc.tif", "lzw_pred.tif", "prog_cv2.jpg",
+                   "prog_pil.jpg", "rle8.bmp", "sub411.jpg")
 # the parallel_forms phase: PF_PAGES pages at the 800x1344 bucket (two of
 # them the per-epoch evaluation's); the pipeline at batch PF_PIPE_BATCH in
 # PF_PIPE_MICRO microbatches, PF_STEPS bf16 steps; --spatial / --tensor-parallel
@@ -3189,18 +3193,23 @@ def phase_datasets(dev):
 
 def phase_pages(dev):
     """The page formats beyond sequential JPEG through the main path on the
-    card, ResNet-50 at full width and depth: the eight full-size pages of
+    card, ResNet-50 at full width and depth: every page of
     ``tests/golden/pages`` (progressive JPEG from PIL and from cv2, CMYK
-    and 4:1:1 JPEG, an RLE8 BMP, CCITT G4, LZW-with-predictor and
-    JPEG-compressed TIFF) decoded by both routes, each SHA-256 equal to the
-    references' in ``digests.json`` and ``image_size`` equal to PIL's
-    size; a CSV of them -> ``train csv`` (bf16, batch 2, 2 steps, the
-    fused stem and its backward kernel); ``predict`` on the files (each
+    and 4:1:1 JPEG, an RLE8 BMP, CCITT G4, LZW-with-predictor,
+    JPEG-compressed and YCbCr LZW TIFF, a P4 PBM, a GIF, sequential and
+    progressive arithmetic-coded JPEG, lossless JPEG, a byte-encoded Sun
+    raster) decoded by both routes, each SHA-256 equal to the references'
+    in ``digests.json``, each route a reference refuses raising (PIL's
+    on the arithmetic page past its first 64 KiB, cv2's on the Sun
+    raster), and ``image_size`` equal to PIL's size; a CSV of the pages
+    the file route reads -> ``train csv`` (bf16, batch 2, 2 steps, the
+    fused stem and its backward kernel); ``predict`` on those files (each
     page's detections a direct predictor's on the file route's decode);
-    the files POSTed to ``serve`` one at a time (each answer the
-    predictor's on the body route's decode). Boxes are held to
-    PAGES_MATCH_PX. Each step's launch counters set to 0 just before it
-    and read just after."""
+    every file POSTed to ``serve`` one at a time (each answer the
+    predictor's on the body route's decode, a 400 where the body route
+    refuses, as the reference's server answers when ``cv2.imdecode``
+    returns None). Boxes are held to PAGES_MATCH_PX. Each step's launch
+    counters set to 0 just before it and read just after."""
     import numpy as np
     import torch
 
@@ -3217,34 +3226,45 @@ def phase_pages(dev):
     work.mkdir(parents=True)
     digests = json.loads((GOLDEN_PAGES / "digests.json").read_text())
     names = sorted(digests)
-    require(len(names) == 8, f"{len(names)} pages in {GOLDEN_PAGES}")
+    on_disk = sorted(p.name for p in GOLDEN_PAGES.iterdir() if p.name != "digests.json")
+    require(names == on_disk, f"digests.json lists {names}, {GOLDEN_PAGES} holds {on_disk}")
 
-    # 1. both decode routes against the references' digests
+    # 1. both decode routes against the references' digests, refusals raising
     decode_ms = {"pil": {}, "cv2": {}}
     files, file_rgb, body_bgr = {}, {}, {}
     for name in names:
         path, info = GOLDEN_PAGES / name, digests[name]
         files[name] = data = path.read_bytes()
-        t0 = time.perf_counter()
-        rgb = decode_image(data, route="pil")
-        t1 = time.perf_counter()
-        body = decode_image(data, route="cv2")
-        t2 = time.perf_counter()
-        decode_ms["pil"][name], decode_ms["cv2"][name] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
-        file_rgb[name] = rgb
-        body_bgr[name] = np.ascontiguousarray(body[:, :, ::-1])
-        require(_sha256(rgb) == info["pil_rgb_sha256"], f"{name}: file route differs from PIL")
-        require(_sha256(body_bgr[name]) == info["cv2_bgr_sha256"],
-                f"{name}: body route differs from cv2.imdecode")
-        require(image_size(path) == tuple(info["size"]) == (rgb.shape[1], rgb.shape[0]),
+        refused = info.get("refused", {})
+        for route, decoded in (("pil", file_rgb), ("cv2", body_bgr)):
+            t0 = time.perf_counter()
+            try:
+                image = decode_image(data, route=route)
+            except ValueError as e:
+                image = e
+            decode_ms[route][name] = (time.perf_counter() - t0) * 1e3
+            if route in refused:
+                require(isinstance(image, ValueError),
+                        f"{name}: the {route} route reads a page its reference refuses "
+                        f"({refused[route]})")
+                continue
+            require(not isinstance(image, ValueError), f"{name}: {route} route: {image}")
+            decoded[name] = image if route == "pil" else np.ascontiguousarray(image[:, :, ::-1])
+            want = info["pil_rgb_sha256" if route == "pil" else "cv2_bgr_sha256"]
+            require(_sha256(decoded[name]) == want, f"{name}: {route} route differs from "
+                    f"{'PIL' if route == 'pil' else 'cv2.imdecode'}")
+        shape = (file_rgb.get(name) if name in file_rgb else body_bgr[name]).shape
+        require(image_size(path) == tuple(info["size"]) == (shape[1], shape[0]),
                 f"{name}: image_size {image_size(path)}, PIL {info['size']}")
-    parted = [n for n in names if not np.array_equal(file_rgb[n], body_bgr[n][:, :, ::-1])]
-    require(parted == [n for n in names if not digests[n]["routes_equal"]],
+    both = [n for n in names if not digests[n].get("refused")]
+    parted = [n for n in both if not np.array_equal(file_rgb[n], body_bgr[n][:, :, ::-1])]
+    require(parted == [n for n in both if not digests[n]["routes_equal"]],
             f"the routes part on {parted}")
+    readable = [n for n in names if n in file_rgb]  # the file route's pages
 
-    # 2. train csv on the pages
+    # 2. train csv on the pages the file route reads
     rows = []
-    for name in names:
+    for name in readable:
         rows += [f"{GOLDEN_PAGES / name},{b[0]},{b[1]},{b[2]},{b[3]},table"
                  for b in digests[name]["boxes"]]
     (work / "annotations.csv").write_text("\n".join(rows) + "\n")
@@ -3278,9 +3298,9 @@ def phase_pages(dev):
         return Predictor(model, variables, device=dev, device_preprocess=True,
                          score_threshold=thr, **inference)
 
-    paths = [str(GOLDEN_PAGES / n) for n in names]
+    paths = [str(GOLDEN_PAGES / n) for n in readable]
     file_pages = [np.ascontiguousarray(file_rgb[n][:, :, ::-1]).astype(np.float32)
-                  for n in names]  # as read_image_bgr reads them
+                  for n in readable]  # as read_image_bgr reads them
     probe = predictor(0.05)  # the predict CLI's: the bundle's threshold, then its own
     thr, gap = _gap_threshold([probe(p) for p in file_pages])
     run("predict", predict.main, [str(bundle), *paths, "--output-dir", str(work / "predict"),
@@ -3295,8 +3315,10 @@ def phase_pages(dev):
     require(n_predict > 0, "predict compared no detections")
     require(worst <= PAGES_MATCH_PX + 1e-6, f"predict's boxes off by {worst} px")
 
-    # 4. serve: the files as bodies, one at a time
-    ctypes = {".jpg": "image/jpeg", ".bmp": "image/bmp", ".tif": "image/tiff"}
+    # 4. serve: every file as a body, one at a time
+    ctypes = {".jpg": "image/jpeg", ".bmp": "image/bmp", ".tif": "image/tiff",
+              ".pbm": "image/x-portable-bitmap", ".gif": "image/gif",
+              ".ras": "image/x-sun-raster"}
     direct = predictor(thr)
     base, httpd, batcher = _serve(predictor(thr), max_batch=4,
                                   max_delay_ms=SERVE_MAX_DELAY_MS, default_threshold=thr)
@@ -3311,9 +3333,15 @@ def phase_pages(dev):
         launches["serve"] = {k: c.count for k, c in counters.items()}
     finally:
         _stop(httpd, batcher)
-    require(all(a[0] == 200 for a in answers), f"serve answers {[a[:2] for a in answers]}")
+    statuses = {n: a[0] for a, n in zip(answers, names)}
+    require(statuses == {n: 200 if n in body_bgr else 400 for n in names},
+            f"serve answers {statuses} (400 where the body route refuses)")
     serve_worst, n_served = 0.0, 0
     for a, name in zip(answers, names):
+        if name not in body_bgr:
+            require("could not decode image body" in a[1].get("error", ""),
+                    f"{name}: served {a[1]}")
+            continue
         page = body_bgr[name]
         require(a[1]["image_hw"] == list(page.shape[:2]),
                 f"served image_hw {a[1]['image_hw']}, decoded {page.shape[:2]}")
@@ -3329,6 +3357,8 @@ def phase_pages(dev):
     total = {k: sum(step[k] for step in launches.values()) for k in counters}
     emit({"phase": "pages", "ok": True,
           "pages": {n: {"bytes": digests[n]["bytes"], "size": digests[n]["size"]} for n in names},
+          "refused": {n: sorted(digests[n]["refused"]) for n in names
+                      if digests[n].get("refused")},
           "routes_parted": parted,
           "decode_ms": decode_ms,
           "decode_ms_mean": {r: sum(d.values()) / len(d) for r, d in decode_ms.items()},
@@ -3338,8 +3368,8 @@ def phase_pages(dev):
                                               in launches["train_csv"].items()}},
           "predict": {"pages": len(paths), "score_threshold": thr, "threshold_gap": gap,
                       "detections_compared": n_predict, "max_box_diff_px": worst},
-          "serve": {"bodies": len(names), "detections_compared": n_served,
-                    "max_box_diff_px": serve_worst},
+          "serve": {"bodies": len(names), "refused_400": len(names) - len(body_bgr),
+                    "detections_compared": n_served, "max_box_diff_px": serve_worst},
           "seconds": seconds, "launches": launches, "launches_total": total,
           "phase_seconds": time.monotonic() - t_phase})
     return total
@@ -3490,7 +3520,7 @@ def phase_distributed(dev):
     - this process without a group, as a user runs one card: ``train`` bf16
       at batch DIST_BATCH for DIST_STEPS steps (the one-rank step time),
       ``train`` f32 at batch 2 x DIST_BATCH for one step, and ``evaluate
-      --coco`` on the 8 pages of tests/golden/pages (their GT: a direct
+      --coco`` on the 8 pages DIST_EVAL_PAGES of tests/golden/pages (their GT: a direct
       Predictor's DIST_EVAL_GT best boxes a page);
     - this process in a synthetic 1-rank NCCL group (``_one_rank_group``),
       so that NCCL's path runs on any card count: the f32 step again;
@@ -3541,8 +3571,7 @@ def phase_distributed(dev):
     # the evaluation's GT: the model's own DIST_EVAL_GT best boxes a page
     # (random weights reach no page's tables), so that the compared AP lines
     # turn on every rank's detections and scores
-    golden = [GOLDEN_PAGES / n for n in sorted(json.loads(
-        (GOLDEN_PAGES / "digests.json").read_text()))]
+    golden = [GOLDEN_PAGES / n for n in DIST_EVAL_PAGES]
     model, variables, _ = load_model(str(work / "init.tdn"))
     probe = Predictor(model, variables, device=dev, device_preprocess=True,
                       min_side=MIN_SIDE, max_side=MAX_SIDE)

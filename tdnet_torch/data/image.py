@@ -1,10 +1,11 @@
 """Host-side image reading and preprocessing in numpy, the counterpart of
 ``tdnet/data/image.py``.
 
-:func:`read_image_bgr` decodes PNG, JPEG, BMP and TIFF pages with the
-port's own decoders (``data/png.py``, ``data/jpeg.py``, ``data/bmp.py``,
-``data/tiff.py``: zlib and numpy), byte for byte as the reference's PIL
-``convert("RGB")`` does, and reads ``.npy`` arrays. The format is sniffed from the content, as PIL does,
+:func:`read_image_bgr` decodes PNG, JPEG, BMP, TIFF, PNM, GIF and Sun
+raster pages with the port's own decoders (``data/png.py``, ``jpeg.py``,
+``bmp.py``, ``tiff.py``, ``pnm.py``, ``gif.py``, ``sunras.py``: zlib and
+numpy), byte for byte as the reference's PIL ``convert("RGB")`` does, and
+reads ``.npy`` arrays. The format is sniffed from the content, as PIL does,
 not taken from the file's extension.
 
 The GPU machine has neither cv2 nor PIL, so :func:`resize_image` is a numpy
@@ -24,7 +25,7 @@ from typing import Tuple
 
 import numpy as np
 
-from tdnet_torch.data import bmp, jpeg, png, tiff
+from tdnet_torch.data import bmp, gif, jpeg, png, pnm, sunras, tiff
 
 __all__ = [
     "CAFFE_MEAN_BGR",
@@ -42,15 +43,16 @@ __all__ = [
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], dtype=np.float32)
 
 
-READS = f"{png.READS}; {jpeg.READS}; {bmp.READS}; {tiff.READS}"
+READS = "; ".join(m.READS for m in (png, jpeg, bmp, tiff, pnm, gif, sunras))
 
 
 def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
-    """PNG, JPEG, BMP or TIFF bytes, told apart by their first bytes ->
-    (H, W, 3) uint8 RGB by the rule of ``route``: ``"pil"`` (files: PIL's
-    ``convert("RGB")``) or ``"cv2"`` (serve bodies: ``cv2.imdecode(...,
-    IMREAD_COLOR)``, which turns a JPEG by its EXIF orientation; both turn
-    a TIFF by its ``Orientation``)."""
+    """PNG, JPEG, BMP, TIFF, PNM, GIF or Sun raster bytes, told apart by
+    their first bytes -> (H, W, 3) uint8 RGB by the rule of ``route``:
+    ``"pil"`` (files: PIL's ``convert("RGB")``) or ``"cv2"`` (serve bodies:
+    ``cv2.imdecode(..., IMREAD_COLOR)``, which turns a JPEG by its EXIF
+    orientation; both turn a TIFF by its ``Orientation``). A file that the
+    route's reference refuses raises, naming the case."""
     if data.startswith(png.SIGNATURE):
         return png.decode_png(data, sixteen_bit=route)
     if data.startswith(jpeg.SIGNATURE):
@@ -59,13 +61,19 @@ def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
         return bmp.decode_bmp(data, route=route)
     if data.startswith(tiff.SIGNATURES):
         return tiff.decode_tiff(data, route=route)
+    if data[:2] in pnm.SIGNATURES:
+        return pnm.decode_pnm(data, route=route)
+    if data.startswith(gif.SIGNATURES):
+        return gif.decode_gif(data, route=route)
+    if data.startswith(sunras.SIGNATURE):
+        return sunras.decode_sunras(data, route=route)
     raise ValueError(f"unsupported image format; the port reads {READS}")
 
 
 def read_image_bgr(path) -> np.ndarray:
-    """An image file -> (H, W, 3) float32 BGR: PNG, JPEG, BMP or TIFF (decoded as
-    PIL's ``convert("RGB")``, then the channels flipped) or a ``.npy`` array
-    that is already (H, W, 3) BGR."""
+    """An image file -> (H, W, 3) float32 BGR: any format of :data:`READS`
+    (decoded as PIL's ``convert("RGB")``, then the channels flipped) or a
+    ``.npy`` array that is already (H, W, 3) BGR."""
     path = os.fspath(path)
     if path.endswith(".npy"):
         image = np.load(path, allow_pickle=False)
@@ -89,9 +97,10 @@ def write_image_bgr(path, image_bgr: np.ndarray) -> None:
 
 
 def image_size(path):
-    """(width, height) of a PNG, JPEG, BMP or TIFF (from its headers,
+    """(width, height) of any format of :data:`READS` (from its headers,
     without decoding pixels, as PIL's ``.size``: a JPEG's EXIF orientation
-    is not applied, a TIFF's ``Orientation`` is) or of a ``.npy`` image."""
+    is not applied, a TIFF's ``Orientation`` is, a GIF's screen grows to
+    hold its first frame) or of a ``.npy`` image."""
     path = os.fspath(path)
     if path.endswith(".npy"):
         h, w = np.load(path, mmap_mode="r", allow_pickle=False).shape[:2]
@@ -106,6 +115,12 @@ def image_size(path):
             return jpeg.jpeg_size(head + f.read())
         if head.startswith(tiff.SIGNATURES):
             return tiff.tiff_size(head + f.read())
+        if head[:2] in pnm.SIGNATURES:
+            return pnm.pnm_size(head + f.read())
+        if head.startswith(gif.SIGNATURES):
+            return gif.gif_size(head + f.read())
+        if head.startswith(sunras.SIGNATURE):
+            return sunras.sunras_size(head)
     raise ValueError(f"{path}: unsupported image format; the port reads {READS}")
 
 

@@ -10,13 +10,26 @@ this module mirrors that library:
   (``route="cv2"``).
 
 Reads baseline and extended sequential and progressive Huffman frames
-(SOF0, SOF1, SOF2) at 8 bits with one, three or four components and any
+(SOF0, SOF1, SOF2) and their arithmetic-coded forms (SOF9, SOF10, with DAC
+conditioning tables) at 8 bits with one, three or four components and any
 sampling factors libjpeg accepts (1 to 4; each component's factors must
 divide the largest), interleaved or not, 8- or 16-bit quantisation tables,
 restart intervals, and the Annex K Huffman tables where a file defines
-none (Motion JPEG). Lossless, hierarchical, arithmetic-coded and 12-bit
-frames and DNL raise, as does a file that ends before its EOI marker
-(both reference routes fail on one).
+none (Motion JPEG); and lossless frames (SOF3: predictors 1 to 7, a point
+transform, sampling 1x1), which libjpeg-turbo 3 decodes without colour
+conversion: gray, RGB or CMYK, never YCbCr. Hierarchical frames, lossless
+arithmetic coding (SOF11), 12-bit samples and DNL raise, as does a file
+that ends before its EOI marker (both reference routes fail on each).
+
+Arithmetic decoding is ``jdarith.c``: the Qe state machine of T.81 Table
+D.2, the DC and AC statistics bins with their conditioning, a Python loop
+over binary decisions. PIL hands libjpeg the file's first 65536 bytes,
+and libjpeg's arithmetic decoder cannot wait for more: the pil route
+raises where the decoder would read past them, as PIL fails there
+(cv2 reads the whole buffer). A lossless scan's differences are
+Huffman-decoded and undifferenced row by row as ``jdpred.c`` does; cv2
+asks libjpeg for BGR, which lossless mode does not convert gray to, so
+the cv2 route refuses gray lossless files.
 
 The entropy decoding is serial: each Huffman symbol is found from the next
 16 bits through a 65536-entry table (libjpeg's ``look_nbits``/``look_sym``
@@ -64,29 +77,33 @@ __all__ = ["SIGNATURE", "READS", "ROUTES", "decode_jpeg", "jpeg_size",
            "exif_orientation"]
 
 SIGNATURE = b"\xff\xd8\xff"
-READS = ("baseline, extended sequential and progressive Huffman JPEG (8-bit; "
-         "gray, YCbCr, RGB, CMYK or YCCK; sampling factors up to 4)")
+READS = ("baseline, extended sequential and progressive JPEG, Huffman or arithmetic, "
+         "and lossless JPEG (8-bit; gray, YCbCr, RGB, CMYK or YCCK; sampling factors up "
+         "to 4)")
 ROUTES = ("pil", "cv2")
 
 # the next marker: fill bytes (0xFF) before it, its code not 0x00 (a
 # stuffed data byte) and not 0xFF
+# PIL's ImageFile.MAXBLOCK: the bytes of the file it hands libjpeg first
+PIL_BLOCK = 65536
+
 _MARKER = re.compile(rb"\xff+([^\x00\xff])")
 # a stuffed 0xFF data byte in entropy-coded data (libjpeg drops any fill
 # bytes before the 0x00)
 _STUFFED = re.compile(rb"\xff+\x00")
 
-_SOF_READ = (0xC0, 0xC1, 0xC2)  # SOF2: progressive
+_SOF_READ = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA)  # SOF2, 10: progressive; SOF3: lossless;
+# SOF9, 10: arithmetic
+_PROGRESSIVE = (0xC2, 0xCA)
+_ARITHMETIC = (0xC9, 0xCA)
 _SOF_UNSUPPORTED = {
-    0xC3: "lossless JPEG (SOF3) is not read",
-    0xC5: "hierarchical JPEG (SOF5) is not read",
-    0xC6: "hierarchical JPEG (SOF6) is not read",
-    0xC7: "hierarchical JPEG (SOF7) is not read",
-    0xC9: "arithmetic-coded JPEG (SOF9) is not read",
-    0xCA: "arithmetic-coded JPEG (SOF10) is not read",
-    0xCB: "arithmetic-coded JPEG (SOF11) is not read",
-    0xCD: "arithmetic-coded JPEG (SOF13) is not read",
-    0xCE: "arithmetic-coded JPEG (SOF14) is not read",
-    0xCF: "arithmetic-coded JPEG (SOF15) is not read",
+    0xC5: "hierarchical JPEG (SOF5): libjpeg-turbo does not decode it",
+    0xC6: "hierarchical JPEG (SOF6): libjpeg-turbo does not decode it",
+    0xC7: "hierarchical JPEG (SOF7): libjpeg-turbo does not decode it",
+    0xCB: "lossless arithmetic-coded JPEG (SOF11): libjpeg-turbo does not decode it",
+    0xCD: "hierarchical arithmetic-coded JPEG (SOF13): libjpeg-turbo does not decode it",
+    0xCE: "hierarchical arithmetic-coded JPEG (SOF14): libjpeg-turbo does not decode it",
+    0xCF: "hierarchical arithmetic-coded JPEG (SOF15): libjpeg-turbo does not decode it",
 }
 
 # zigzag position -> natural (row-major) index
@@ -134,7 +151,7 @@ class _Huffman:
     EOB); ``(code length, run, None)`` where the extra bits do not fit,
     and ``slow[i]`` is then the size."""
 
-    def __init__(self, counts: bytes, symbols: bytes, is_dc: bool):
+    def __init__(self, counts: bytes, symbols: bytes, is_dc: bool, lossless: bool = False):
         length = np.full(65536, _BAD_CODE, np.int64)
         symbol = np.zeros(65536, np.int64)
         code, k = 0, 0
@@ -147,15 +164,17 @@ class _Huffman:
                 length[lo:hi], symbol[lo:hi] = bits, symbols[k]
                 code, k = code + 1, k + 1
             code <<= 1
-        if is_dc and any(s > 15 for s in symbols):
+        if is_dc and any(s > (16 if lossless else 15) for s in symbols):
             raise ValueError("bad Huffman table: a DC symbol above 15")
         bad = length == _BAD_CODE
         size = symbol if is_dc else symbol & 15  # a DC symbol is the size
+        wide = (symbol == 16) & lossless  # lossless category 16: 32768, no extra bits
+        size = np.where(wide, 0, size)
         total = length + size
         fits = (total <= 16) | bad
         idx = np.arange(65536, dtype=np.int64)
         extra = (idx >> np.maximum(16 - total, 0)) & ((1 << size) - 1)
-        value = np.where(bad, 0, _extend(extra, size))
+        value = np.where(bad, 0, np.where(wide, 32768, _extend(extra, size)))
         n = np.where(bad, _BAD_CODE, np.where(fits, total, length)).tolist()
         v, f = value.tolist(), fits.tolist()
         self.slow = {i: int(size[i]) for i in np.flatnonzero(~fits).tolist()}
@@ -187,10 +206,10 @@ def _extend(x, s):
 
 
 @functools.lru_cache(maxsize=32)
-def _huffman(counts: bytes, symbols: bytes, is_dc: bool) -> _Huffman:
+def _huffman(counts: bytes, symbols: bytes, is_dc: bool, lossless: bool = False) -> _Huffman:
     """Tables are cached by content (most files of one encoder share them);
     a table is never changed once built."""
-    return _Huffman(counts, symbols, is_dc)
+    return _Huffman(counts, symbols, is_dc, lossless)
 
 
 _STRIDE = 80  # a block's slots: 64, and room for a run past the last (k <= 78)
@@ -209,9 +228,10 @@ class _Frame:
     """SOF geometry, as libjpeg's ``initial_setup`` lays it out."""
 
     def __init__(self, width: int, height: int, comps: List[_Component],
-                 progressive: bool = False):
+                 progressive: bool = False, arithmetic: bool = False, lossless: bool = False):
         self.width, self.height, self.comps = width, height, comps
-        self.progressive = progressive
+        self.progressive, self.arithmetic, self.lossless = progressive, arithmetic, lossless
+        self.read_end = 0  # arithmetic: the furthest file offset its decoder read
         self.max_h = max(c.h for c in comps)
         self.max_v = max(c.v for c in comps)
         self.mcus_x = -(-width // (8 * self.max_h))
@@ -279,13 +299,12 @@ def _header(data: bytes, stop_at_frame: bool):
 def _check_frame_marker(marker: int) -> None:
     if marker in _SOF_UNSUPPORTED:
         raise ValueError(_SOF_UNSUPPORTED[marker])
-    if marker == 0xCC:
-        raise ValueError("arithmetic-coded JPEG (DAC) is not read")
     if marker == 0xDC:
         raise ValueError("JPEG with a DNL marker (height 0 in its frame) is not read")
 
 
-def _parse_frame(body: bytes, progressive: bool = False) -> _Frame:
+def _parse_frame(body: bytes, progressive: bool = False, arithmetic: bool = False,
+                 lossless: bool = False) -> _Frame:
     if len(body) < 6:
         raise ValueError("bad JPEG frame header")
     precision, height, width, n = struct.unpack(">BHHB", body[:6])
@@ -306,7 +325,12 @@ def _parse_frame(body: bytes, progressive: bool = False) -> _Frame:
         if tq > 3:
             raise ValueError(f"bad JPEG quantisation table id {tq}")
         comps.append(_Component(cid, h, v, tq))
-    frame = _Frame(width, height, comps, progressive)
+    frame = _Frame(width, height, comps, progressive, arithmetic, lossless)
+    if lossless:
+        if any(c.h != 1 or c.v != 1 for c in comps):
+            raise ValueError("lossless JPEG with sampling factors other than 1 is not read")
+        for c in comps:
+            c.samples = np.zeros((height, width), np.uint8)
     for c in comps:
         if frame.max_h % c.h or frame.max_v % c.v:
             raise ValueError(f"JPEG sampling factors {c.h}x{c.v} against {frame.max_h}x"
@@ -383,7 +407,11 @@ def _huffman_tables(body: bytes, tables: Dict[Tuple[int, int], _Huffman]) -> Non
         symbols = body[pos + 17:pos + 17 + n]
         if tc > 1 or th > 3 or len(counts) != 16 or len(symbols) != n or n > 256:
             raise ValueError("bad JPEG Huffman table")
-        tables[(tc, th)] = _huffman(bytes(counts), bytes(symbols), tc == 0)
+        if tc == 0 and max(symbols, default=0) == 16:
+            tables[(tc, th)] = None  # category 16: a lossless table only
+        else:
+            tables[(tc, th)] = _huffman(bytes(counts), bytes(symbols), tc == 0)
+        tables[("raw", tc, th)] = (bytes(counts), bytes(symbols))
         pos += 17 + n
 
 
@@ -488,6 +516,8 @@ def _scan_header(body: bytes, frame: _Frame, huff, quant, tables_needed=(0, 1)):
             if key[0] not in tables_needed:
                 pair.append(None)
                 continue
+            if key in huff and huff[key] is None:
+                raise ValueError("bad Huffman table: a DC symbol above 15")
             if key not in huff:
                 if key not in _STD_TABLES:
                     raise ValueError(f"JPEG scan uses Huffman table {key}, which is undefined")
@@ -525,9 +555,11 @@ def _scan_order(frame: _Frame, comps: List[_Component]):
     return np.stack(parts, axis=1).reshape(-1).tolist(), len(parts), index
 
 
-def _scan_segments(reader: _Reader) -> List[bytes]:
+def _scan_segments(reader: _Reader, spans: Optional[list] = None) -> List[bytes]:
     """A scan's entropy-coded data, un-stuffed: intervals split at RSTn, up
-    to the next other marker (the reader is left at it)."""
+    to the next other marker (the reader is left at it). ``spans`` gets
+    each interval's (file offset of its data, of the marker after it, of
+    the marker's end)."""
     data = reader.data
     start = reader.pos
     segments = []
@@ -536,6 +568,8 @@ def _scan_segments(reader: _Reader) -> List[bytes]:
         if m is None:
             raise ValueError("truncated JPEG: the file ends before its EOI marker")
         segments.append(_STUFFED.sub(b"\xff", data[start:m.start()]))
+        if spans is not None:
+            spans.append((start, m.start(), m.end()))
         start = m.end()
         if not 0xD0 <= m.group(1)[0] <= 0xD7:
             reader.pos = m.start()
@@ -682,20 +716,27 @@ def _ac_refine(W, pos, end, slots, table, ss, se, al, coefs) -> None:
             return
 
 
-def _progressive_scan(reader: _Reader, body: bytes, frame: _Frame, huff, quant,
-                      restart: int) -> None:
-    """One scan of a progressive frame (``jdphuff.c``), which refines the
-    frame's coefficient buffer in place."""
+def _progressive_band(body: bytes):
+    """A progressive scan's (Ss, Se, Ah, Al), checked as ``jdphuff.c`` and
+    ``jdarith.c`` check them."""
     if len(body) < 1 or len(body) < 1 + 2 * body[0] + 3:
         raise ValueError("bad JPEG scan header")
     ns = body[0]
     ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
     ah, al = a >> 4, a & 15
-    dc_band = ss == 0
-    if (se != 0 if dc_band else (ss > se or se > 63 or ns != 1)) \
+    if (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1)) \
             or (ah and al != ah - 1) or al > 13:
         raise ValueError(f"bad progressive JPEG scan: Ss {ss}, Se {se}, Ah {ah}, Al {al} "
                          f"over {ns} components")
+    return ss, se, ah, al
+
+
+def _progressive_scan(reader: _Reader, body: bytes, frame: _Frame, huff, quant,
+                      restart: int) -> None:
+    """One scan of a progressive frame (``jdphuff.c``), which refines the
+    frame's coefficient buffer in place."""
+    ss, se, ah, al = _progressive_band(body)
+    dc_band = ss == 0
     needed = ((0,) if ah == 0 else ()) if dc_band else (1,)
     comps, tables, _ = _scan_header(body, frame, huff, quant, needed)
     for c in comps:
@@ -721,6 +762,436 @@ def _progressive_scan(reader: _Reader, body: bytes, frame: _Frame, huff, quant,
         else:
             _ac_refine(W, start, end, part, tables[0][1], ss, se, al, coefs)
         start = end + 8 * _PGAP
+
+
+# --- arithmetic-coded scans (jdarith.c). T.81 Table D.2 as libjpeg-turbo's
+# jaricom.c holds it: state -> (Qe, next state after an LPS, after an MPS,
+# whether an LPS switches the MPS); state 113 is the fixed 0.5 estimate.
+_ARITAB = (
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080B, 18, 4, 0),
+    (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0), (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1), (0x3F25, 36, 16, 0),
+    (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0), (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0CEF, 43, 21, 0), (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01B1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0), (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0), (0x2EF1, 67, 40, 0),
+    (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0), (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0), (0x04DE, 50, 52, 0),
+    (0x040F, 50, 53, 0), (0x0363, 51, 54, 0), (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0),
+    (0x01F8, 54, 57, 0), (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0), (0x008F, 61, 32, 0),
+    (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0), (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0),
+    (0x2FE8, 83, 69, 0), (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0), (0x119C, 74, 76, 0),
+    (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0), (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0), (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0), (0x3C3D, 104, 100, 0),
+    (0x375E, 99, 93, 0), (0x5231, 105, 102, 0), (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415E, 103, 99, 0), (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0),
+)
+ARITH_QE = [q for q, _, _, _ in _ARITAB]
+ARITH_NEXT_LPS = [(switch << 7) | lps for _, lps, _, switch in _ARITAB]  # the switch in bit 7
+ARITH_NEXT_MPS = [mps for _, _, mps, _ in _ARITAB]
+ARITH_FIXED = 113
+_DC_BINS, _AC_BINS = 64, 256
+
+
+class _ArithError(Exception):
+    """jdarith.c's ``ct = -1``: a magnitude or spectral overflow, after
+    which libjpeg decodes nothing more of the interval."""
+
+
+def _arith_decoder(data: bytes):
+    """``arith_decode`` over one interval's un-stuffed bytes, zero bytes past
+    their end (libjpeg feeds zeros once it meets a marker): a function of a
+    statistics area and a bin -> the decoded bit, the bin updated."""
+    a = c = pos = 0
+    ct = -16  # two bytes to read before the first decision
+    n = len(data)
+    qes, nls, nms = ARITH_QE, ARITH_NEXT_LPS, ARITH_NEXT_MPS
+
+    def consumed() -> int:
+        return pos
+
+    def decode(st, i: int) -> int:
+        nonlocal a, c, ct, pos
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                c <<= 8
+                if pos < n:
+                    c |= data[pos]
+                    pos += 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        k = sv & 0x7F
+        qe = qes[k]
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nms[k]
+            else:
+                st[i] = (sv & 0x80) ^ nls[k]
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nls[k]
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nms[k]
+        return sv >> 7
+
+    decode.consumed = consumed  # bytes of ``data`` read so far
+    return decode
+
+
+def _read_end(data: bytes, span, segment: bytes, consumed: int) -> int:
+    """The file offset past the last byte libjpeg's arithmetic decoder read
+    of an interval that it read ``consumed`` un-stuffed bytes of: into the
+    marker after the data where it read all of them (it reads the marker
+    to find it), else through the stuffing of the last byte it read."""
+    start, marker, marker_end = span
+    if consumed >= len(segment):
+        return marker_end
+    extra = 0  # stuffed bytes beyond the un-stuffed ones read so far
+    for m in _STUFFED.finditer(data, start, marker):
+        if m.start() - start - extra >= consumed:
+            break
+        extra += m.end() - m.start() - 1
+    return start + consumed + extra
+
+
+def _arith_dc(decode, st, s0: int, lower: int, upper: int):
+    """Figures F.19-F.24: one DC difference from the statistics area ``st``
+    at context ``s0`` -> (difference, next context)."""
+    if not decode(st, s0):
+        return 0, 0
+    sign = decode(st, s0 + 1)
+    i = s0 + 2 + sign
+    m = decode(st, i)
+    if m:
+        i = 20
+        while decode(st, i):
+            m <<= 1
+            if m == 0x8000:
+                raise _ArithError
+            i += 1
+    if m < (1 << lower) >> 1:
+        context = 0
+    elif m > (1 << upper) >> 1:
+        context = 12 + 4 * sign
+    else:
+        context = 4 + 4 * sign
+    v, i = m, i + 14
+    while m > 1:
+        m >>= 1
+        if decode(st, i):
+            v |= m
+    v += 1
+    return (-v if sign else v), context
+
+
+def _arith_ac_value(decode, st, i: int, k: int, kk: int, fixed) -> int:
+    """Figures F.21-F.24 for the AC coefficient at zigzag ``k`` whose bins
+    start at ``i`` (``kk``: the table's conditioning bound K)."""
+    sign = decode(fixed, 0)
+    i += 2
+    m = decode(st, i)
+    if m and decode(st, i):
+        m <<= 1
+        i = 189 if k <= kk else 217
+        while decode(st, i):
+            m <<= 1
+            if m == 0x8000:
+                raise _ArithError
+            i += 1
+    v, i = m, i + 14
+    while m > 1:
+        m >>= 1
+        if decode(st, i):
+            v |= m
+    v += 1
+    return -v if sign else v
+
+
+def _w16s(v: int) -> int:
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+def _arith_sequential(decode, blocks, coefs, stats, dac) -> None:
+    """``decode_mcu``: every block of one interval; ``blocks`` lists (slot,
+    DC table, AC table, component)."""
+    dc_stats, ac_stats, fixed = stats
+    lower, upper, kks = dac
+    last, context = [0, 0, 0, 0], [0, 0, 0, 0]
+    for base, td, ta, ci in blocks:
+        v, context[ci] = _arith_dc(decode, dc_stats[td], context[ci], lower[td], upper[td])
+        last[ci] = (last[ci] + v) & 0xFFFF
+        coefs[base] = _w16s(last[ci])
+        st, kk, k = ac_stats[ta], kks[ta], 0
+        while k < 63:
+            i = 3 * k
+            if decode(st, i):  # end of block
+                break
+            while True:
+                k += 1
+                if decode(st, i + 1):
+                    break
+                i += 3
+                if k >= 63:
+                    raise _ArithError
+            coefs[base + k] = _w16s(_arith_ac_value(decode, st, i, k, kk, fixed))
+
+
+def _arith_dc_first(decode, blocks, coefs, stats, dac, al: int) -> None:
+    dc_stats = stats[0]
+    lower, upper, _ = dac
+    last, context = [0, 0, 0, 0], [0, 0, 0, 0]
+    for base, td, _, ci in blocks:
+        v, context[ci] = _arith_dc(decode, dc_stats[td], context[ci], lower[td], upper[td])
+        last[ci] = (last[ci] + v) & 0xFFFF
+        coefs[base] = _w16s(last[ci] << al)
+
+
+def _arith_dc_refine(decode, blocks, coefs, stats, al: int) -> None:
+    fixed = stats[2]
+    for base, _, _, _ in blocks:
+        if decode(fixed, 0):
+            coefs[base] |= 1 << al
+
+
+def _arith_ac_first(decode, blocks, coefs, stats, dac, ss: int, se: int, al: int) -> None:
+    _, ac_stats, fixed = stats
+    for base, _, ta, _ in blocks:
+        st, kk, k = ac_stats[ta], dac[2][ta], ss
+        while k <= se:
+            i = 3 * (k - 1)
+            if decode(st, i):
+                break
+            while not decode(st, i + 1):
+                i += 3
+                k += 1
+                if k > se:
+                    raise _ArithError
+            coefs[base + k] = _w16s(_arith_ac_value(decode, st, i, k, kk, fixed) << al)
+            k += 1
+
+
+def _arith_ac_refine(decode, blocks, coefs, stats, ss: int, se: int, al: int) -> None:
+    _, ac_stats, fixed = stats
+    p1, m1 = 1 << al, -1 << al
+    for base, _, ta, _ in blocks:
+        st = ac_stats[ta]
+        kex = se
+        while kex > 0 and not coefs[base + kex]:
+            kex -= 1
+        k = ss
+        while k <= se:
+            i = 3 * (k - 1)
+            if k > kex and decode(st, i):
+                break
+            while True:
+                v = coefs[base + k]
+                if v:
+                    if decode(st, i + 2):
+                        coefs[base + k] = _w16s(v + (m1 if v < 0 else p1))
+                    break
+                if decode(st, i + 1):
+                    coefs[base + k] = m1 if decode(fixed, 0) else p1
+                    break
+                i += 3
+                k += 1
+                if k > se:
+                    raise _ArithError
+            k += 1
+
+
+def _dac(body: bytes, dac) -> None:
+    """``get_dac``: conditioning tables, (class, id) -> DC (L, U) or AC K."""
+    lower, upper, kks = dac
+    if len(body) % 2:
+        raise ValueError("bad JPEG DAC segment")
+    for pos in range(0, len(body), 2):
+        index, value = body[pos], body[pos + 1]
+        if index >= 32:
+            raise ValueError(f"bad JPEG DAC table index {index}")
+        if index >= 16:
+            kks[index - 16] = value
+        else:
+            lower[index], upper[index] = value & 15, value >> 4
+            if lower[index] > upper[index]:
+                raise ValueError(f"bad JPEG DAC value 0x{value:02x}: L above U")
+
+
+def _arith_scan(reader: _Reader, body: bytes, frame: _Frame, quant, restart: int,
+                dac) -> None:
+    """One arithmetic-coded scan (SOF9: the whole band of every block;
+    SOF10: a progressive scan), its statistics areas fresh at the scan's
+    start and at each restart."""
+    if frame.progressive:
+        ss, se, ah, al = _progressive_band(body)
+    else:
+        ss, se, ah, al = 0, 63, 0, 0
+    comps, _, _ = _scan_header(body, frame, {}, quant, ())
+    ns = body[0]
+    selectors = [(body[2 + 2 * i] >> 4, body[2 + 2 * i] & 15) for i in range(ns)]
+    if any(t >= 16 for pair in selectors for t in pair):
+        raise ValueError("bad JPEG scan: an arithmetic table selector above 15")
+    if frame.progressive:
+        for c in comps:
+            c.coef_bits[ss:se + 1] = [al] * (se + 1 - ss)
+    slots, per_mcu, index = _scan_order(frame, comps)
+    blocks = [(slot, *selectors[index[j % per_mcu]], index[j % per_mcu])
+              for j, slot in enumerate(slots)]
+    n_mcus = len(slots) // per_mcu
+    step = restart or n_mcus
+    coefs = frame.coefs
+    spans = []
+    segments = _scan_segments(reader, spans)
+    # an interval without data (a restart marker missing) is left as it is
+    for first, segment, span in zip(range(0, n_mcus, step), segments, spans):
+        part = blocks[first * per_mcu:(first + step) * per_mcu]
+        stats = ([bytearray(_DC_BINS) for _ in range(16)],
+                 [bytearray(_AC_BINS) for _ in range(16)], bytearray([ARITH_FIXED]))
+        decode = _arith_decoder(segment)
+        try:
+            if not frame.progressive:
+                _arith_sequential(decode, part, coefs, stats, dac)
+            elif ss == 0 and ah == 0:
+                _arith_dc_first(decode, part, coefs, stats, dac, al)
+            elif ss == 0:
+                _arith_dc_refine(decode, part, coefs, stats, al)
+            elif ah == 0:
+                _arith_ac_first(decode, part, coefs, stats, dac, ss, se, al)
+            else:
+                _arith_ac_refine(decode, part, coefs, stats, ss, se, al)
+        except _ArithError:
+            pass  # libjpeg warns and leaves the rest of the interval as it is
+        frame.read_end = max(frame.read_end, _read_end(reader.data, span, segment,
+                                                       decode.consumed()))
+
+
+# --- lossless scans (SOF3: libjpeg-turbo 3's jdlhuff.c, jdpred.c and
+# jdlossls.c). Each sample's difference from its prediction, Huffman-coded
+# by magnitude category; the samples undifferenced row by row.
+
+
+def _lossless_diffs(segment: bytes, tables, n: int) -> np.ndarray:
+    """n differences of one interval, the tables taken in turn (one a
+    component of the scan); past the data, zero bits (libjpeg feeds zeros
+    to a scan that runs out)."""
+    out = [0] * n
+    ns = len(tables)
+    for pad in (8, 4 * n + 8):
+        W = _windows(segment + bytes(pad))
+        pos = 0
+        try:
+            for j in range(n):
+                dc = tables[j % ns]
+                x = (W[pos >> 3] >> (8 - (pos & 7))) & 0xFFFFFFFF
+                bits, v = dc.fast[x >> 16]
+                if v is None:
+                    s = dc.slow[x >> 16]
+                    e = (x >> (32 - bits - s)) & ((1 << s) - 1)
+                    v = e if e >> (s - 1) else e - (1 << s) + 1
+                    bits += s
+                pos += bits
+                out[j] = v
+            break
+        except IndexError:
+            continue
+    return np.array(out, np.int64)
+
+
+def _undifference(d: np.ndarray, predictor: int, initial: int) -> np.ndarray:
+    """``jdpred.c`` over one interval of one component: (rows, width)
+    differences -> samples mod 2^16. The interval's first row predicts
+    from the left (its first sample from ``initial``), each later row's
+    first sample from above, the rest by the scan's predictor."""
+    rows, width = d.shape
+    x = np.empty_like(d)
+    x[0] = (initial + np.cumsum(d[0])) & 0xFFFF
+    for r in range(1, rows):
+        b = x[r - 1]
+        first = (d[r, 0] + b[0]) & 0xFFFF
+        if predictor == 1:  # Ra
+            x[r] = (first + np.cumsum(np.concatenate([[0], d[r, 1:]]))) & 0xFFFF
+        elif predictor == 2:  # Rb
+            x[r] = (d[r] + b) & 0xFFFF
+        elif predictor == 3:  # Rc
+            x[r, 0] = first
+            x[r, 1:] = (d[r, 1:] + b[:-1]) & 0xFFFF
+        elif predictor in (4, 5):  # Ra + Rb - Rc, Ra + ((Rb - Rc) >> 1)
+            step = b[1:] - b[:-1] if predictor == 4 else (b[1:] - b[:-1]) >> 1
+            x[r] = (first + np.cumsum(np.concatenate([[0], d[r, 1:] + step]))) & 0xFFFF
+        else:  # Rb + ((Ra - Rc) >> 1), (Ra + Rb) >> 1: each sample on the last
+            row, dr, bl = [first], d[r].tolist(), b.tolist()
+            ra = first
+            for j in range(1, width):
+                if predictor == 6:
+                    ra = (dr[j] + bl[j] + ((ra - bl[j - 1]) >> 1)) & 0xFFFF
+                else:
+                    ra = (dr[j] + ((ra + bl[j]) >> 1)) & 0xFFFF
+                row.append(ra)
+            x[r] = row
+    return x
+
+
+def _lossless_scan(reader: _Reader, body: bytes, frame: _Frame, huff, restart: int) -> None:
+    """One lossless scan: predictor Ss (1 to 7), point transform Al, the
+    samples of each of its components (sampling 1x1: an MCU is one sample
+    of each) decoded, undifferenced and shifted left by Al to 8 bits."""
+    if len(body) < 1 or len(body) < 1 + 2 * body[0] + 3:
+        raise ValueError("bad JPEG scan header")
+    ns = body[0]
+    predictor, se, a = body[1 + 2 * ns:4 + 2 * ns]
+    ah, al = a >> 4, a & 15
+    if not 1 <= predictor <= 7 or se != 0 or ah != 0 or al >= 8:
+        raise ValueError(f"bad lossless JPEG scan: predictor {predictor}, Se {se}, Ah {ah}, "
+                         f"Al {al}")
+    by_id = {c.id: c for c in frame.comps}
+    comps, tables = [], []
+    for i in range(ns):
+        cid, t = body[1 + 2 * i], body[2 + 2 * i]
+        if cid not in by_id:
+            raise ValueError(f"JPEG scan names component {cid}, which the frame lacks")
+        raw = huff.get(("raw", 0, t >> 4))
+        if raw is None:
+            raise ValueError(f"JPEG scan uses Huffman table (0, {t >> 4}), which is undefined")
+        comps.append(by_id[cid])
+        tables.append(_huffman(*raw, True, True))
+    for c in comps:
+        c.quant = np.ones(64, np.int64)  # sent: no quantisation in lossless mode
+    width, height = frame.width, frame.height
+    if restart and restart % width:
+        raise ValueError(f"lossless JPEG restart interval {restart} not a whole number of "
+                         f"its {width}-MCU rows: libjpeg-turbo refuses it")
+    step = restart // width if restart else height
+    segments = _scan_segments(reader)
+    initial = 1 << (8 - al - 1)
+    for first, segment in zip(range(0, height, step), segments):
+        rows = min(step, height - first)
+        d = _lossless_diffs(segment, tables, rows * width * ns).reshape(rows, width, ns)
+        for i, c in enumerate(comps):
+            x = _undifference(d[:, :, i], predictor, initial)
+            c.samples[first:first + rows] = (x << al) & 0xFF
 
 
 # jidctint.c constants (CONST_BITS 13)
@@ -1027,12 +1498,14 @@ def _orient(image: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(image)
 
 
-def _decode(data: bytes):
-    """Parse and decode a JPEG -> (frame, its upsampled component planes,
-    the colour space libjpeg would guess)."""
+def _coefficients(data: bytes):
+    """Parse a JPEG and entropy-decode its scans -> (frame, its coefficient
+    buffer filled; whether it has a JFIF marker; its Adobe transform or
+    None)."""
     data = bytes(data)
     quant: Dict[int, np.ndarray] = {}
     huff: Dict[Tuple[int, int], _Huffman] = {}
+    dac = ([0] * 16, [1] * 16, [5] * 16)  # arithmetic conditioning: DC L, U; AC K
     frame: Optional[_Frame] = None
     restart = 0
     jfif, adobe = False, None
@@ -1043,11 +1516,14 @@ def _decode(data: bytes):
         if marker in _SOF_READ:
             if frame is not None:
                 raise ValueError("JPEG with two frame headers")
-            frame = _parse_frame(body, progressive=marker == 0xC2)
+            frame = _parse_frame(body, marker in _PROGRESSIVE, marker in _ARITHMETIC,
+                                 marker == 0xC3)
         elif marker == 0xDB:
             _quant_tables(body, quant)
         elif marker == 0xC4:
             _huffman_tables(body, huff)
+        elif marker == 0xCC:
+            _dac(body, dac)
         elif marker == 0xDD:
             if len(body) < 2:
                 raise ValueError("bad JPEG restart interval")
@@ -1056,8 +1532,13 @@ def _decode(data: bytes):
             if frame is None:
                 raise ValueError("JPEG scan before its frame header")
             reader, header = body
-            scan = _progressive_scan if frame.progressive else _scan
-            scan(reader, header, frame, huff, quant, restart)
+            if frame.lossless:
+                _lossless_scan(reader, header, frame, huff, restart)
+            elif frame.arithmetic:
+                _arith_scan(reader, header, frame, quant, restart, dac)
+            else:
+                scan = _progressive_scan if frame.progressive else _scan
+                scan(reader, header, frame, huff, quant, restart)
         elif marker == 0xE0 and len(body) >= 14 and body.startswith(b"JFIF\x00"):
             jfif = True
         elif marker == 0xEE and len(body) >= 12 and body.startswith(b"Adobe"):
@@ -1066,6 +1547,19 @@ def _decode(data: bytes):
         raise ValueError("JPEG without a frame header")
     if any(c.quant is None for c in frame.comps):
         raise ValueError("JPEG whose scans leave a component out")
+    return frame, jfif, adobe
+
+
+def _decode(data: bytes):
+    """Parse and decode a JPEG -> (frame, its upsampled component planes,
+    the colour space libjpeg would guess)."""
+    frame, jfif, adobe = _coefficients(data)
+    if frame.lossless:
+        space = _colour_space(frame, jfif, adobe)
+        if space in ("ycc", "ycck"):
+            raise ValueError(f"lossless {space.upper()} JPEG: libjpeg-turbo converts no colour "
+                             "in lossless mode, and both routes refuse it")
+        return frame, [c.samples for c in frame.comps], space
     smooth = _smoothing(frame)
     planes = [_upsample(_component_plane(frame, c, smooth), c, frame) for c in frame.comps]
     return frame, planes, _colour_space(frame, jfif, adobe)
@@ -1088,6 +1582,13 @@ def decode_jpeg(data: bytes, route: str = "pil") -> np.ndarray:
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     frame, planes, space = _decode(data)
+    if frame.arithmetic and route == "pil" and frame.read_end > PIL_BLOCK:
+        raise ValueError(f"arithmetic-coded JPEG read to byte {frame.read_end}: PIL feeds "
+                         f"libjpeg {PIL_BLOCK} bytes first, and its arithmetic decoder cannot "
+                         "wait for more (PIL: broken data stream)")
+    if frame.lossless and space == "gray" and route == "cv2":
+        raise ValueError("lossless gray JPEG: cv2 asks libjpeg-turbo for BGR, which it does "
+                         "not convert to in lossless mode")
     image = _samples(frame, planes, space)
     if image.shape[2] == 1:
         image = np.repeat(image, 3, axis=2)

@@ -14,9 +14,13 @@ Group 4 (both with ``FillOrder`` 1 or 2) and JPEG (code 7: each strip or
 tile a JPEG stream decoded by ``data/jpeg.py``, the ``JPEGTables`` tag
 spliced in before it, YCbCr converted to RGB by libjpeg and every other
 photometric left as the components are). Photometric min-is-white,
-min-is-black, RGB, palette (a 16-bit colormap), separated CMYK and YCbCr
-(in JPEG only), at 1, 2, 4, 8 or 16 bits a sample. Other compressions,
-photometrics and layouts raise, naming what is not read.
+min-is-black, RGB, palette (a 16-bit colormap), separated CMYK and YCbCr,
+at 1, 2, 4, 8 or 16 bits a sample. Outside JPEG, YCbCr is read as
+libtiff's RGBA interface reads it for both routes: 8-bit data units
+subsampled 1x1 to 4x4 (``tif_getimage.c``, its 4x4 misreads kept) and
+``tif_color.c``'s fixed-point conversion from ``YCbCrCoefficients`` and
+``ReferenceBlackWhite``. Other compressions, photometrics and layouts
+raise, naming what is not read.
 
 The routes part where their decoders do:
 
@@ -32,6 +36,8 @@ The routes part where their decoders do:
   4-bit gray raise on its route.
 - A colormap whose entries are all below 256: libtiff (cv2) takes it for
   an 8-bit one, PIL keeps the high byte of each entry as for any other.
+- Uncompressed YCbCr: PIL reads the bytes as ``RGBX`` unconverted, and
+  raises where that runs past the end of the file (:func:`_pil_raw_ycbcr`).
 - ``Orientation`` turns the page on both routes, and PIL's ``.size``
   (:func:`tiff_size`) reports the turned size.
 """
@@ -51,7 +57,7 @@ __all__ = ["SIGNATURES", "READS", "ROUTES", "decode_tiff", "tiff_size"]
 
 SIGNATURES = (b"II*\x00", b"MM\x00*")
 READS = ("TIFF (first page; strips or tiles, chunky or planar; none, PackBits, LZW, "
-         "deflate, CCITT G3/G4 or JPEG; gray, palette, RGB, CMYK or YCbCr-in-JPEG at "
+         "deflate, CCITT G3/G4 or JPEG; gray, palette, RGB, CMYK or YCbCr at "
          "1 to 16 bits)")
 ROUTES = ("pil", "cv2")
 
@@ -80,9 +86,9 @@ _TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8), 6: (
 (_WIDTH, _HEIGHT, _BITS, _COMPRESSION, _PHOTOMETRIC, _FILL_ORDER, _STRIP_OFFSETS,
  _ORIENTATION, _SAMPLES, _ROWS_PER_STRIP, _STRIP_COUNTS, _PLANAR, _T4, _T6, _PREDICTOR,
  _COLORMAP, _TILE_WIDTH, _TILE_LENGTH, _TILE_OFFSETS, _TILE_COUNTS, _INK_SET, _EXTRA,
- _SAMPLE_FORMAT, _JPEG_TABLES) = (
+ _SAMPLE_FORMAT, _JPEG_TABLES, _LUMA, _SUBSAMPLING, _REF_BLACK_WHITE) = (
     256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284, 292, 293, 317, 320, 322,
-    323, 324, 325, 332, 338, 339, 347)
+    323, 324, 325, 332, 338, 339, 347, 529, 530, 532)
 
 
 def _ifd(data: bytes) -> Tuple[str, Dict[int, tuple]]:
@@ -395,8 +401,9 @@ def _fax(raw: bytes, width: int, rows: int, g4: bool, options: int, lsb_first: b
 
 
 def _chunk(data: bytes, fields, compression: int, index: int, offsets, counts,
-                 cw: int, cr: int, spp: int, bits: int, end: str):
-    """One strip or tile, decompressed -> (cr, cw, spp) samples."""
+                 cw: int, cr: int, spp: int, bits: int, end: str, sub=(1, 1), visible=0):
+    """One strip or tile, decompressed -> (cr, cw, spp) samples; YCbCr
+    subsampled by ``sub`` (h, v) comes back with its chroma replicated."""
     off, count = offsets[index], counts[index]
     raw = data[off:off + count]
     if len(raw) < count:
@@ -425,6 +432,10 @@ def _chunk(data: bytes, fields, compression: int, index: int, offsets, counts,
             raise ValueError(f"{_COMPRESSIONS[compression]} TIFF at {bits} bits, {spp} samples")
         options = _one(fields, _T4 if compression == 3 else _T6, 0)
         body = _fax(raw, cw, cr, compression == 4, options, fill_lsb)
+    if sub != (1, 1):
+        if _one(fields, _PREDICTOR, 1) != 1:
+            raise ValueError("TIFF Predictor with subsampled YCbCr is not read")
+        return _ycbcr_blocks(body, cw, cr, *sub, visible)
     if len(body) < row_bytes * cr:
         raise ValueError("truncated TIFF strip or tile: too few bytes for its rows")
     rows = np.frombuffer(body, np.uint8, row_bytes * cr).reshape(cr, row_bytes)
@@ -459,6 +470,132 @@ def _unpack(rows: np.ndarray, cw: int, spp: int, bits: int, end: str) -> np.ndar
     return px[:, :cw * spp].reshape(cr, cw, spp)
 
 
+def _ycbcr_blocks(body: bytes, cw: int, cr: int, h: int, v: int, visible: int) -> np.ndarray:
+    """Subsampled YCbCr data units (``h * v`` luma samples row by row, then
+    Cb and Cr) -> (cr, cw, 3) samples, each unit's chroma on all its
+    pixels, as ``tif_getimage.c``'s ``putcontig8bitYCbCr{hv}tile`` put
+    the ``visible`` columns of a strip or tile: a partial unit at an edge
+    is whole in the data. libtiff's own arithmetic is kept where it
+    misreads: a strip is read to ``rows * (units a row * unit // v)``
+    bytes, short by the remainder at 4x4 (the rest of its buffer is
+    zero), and at 4x4 the units a tile hides right of the page are
+    skipped as 10 bytes each, not 18."""
+    across, down, unit = -(-cw // h), -(-cr // v), h * v + 2
+    drawn = -(-visible // h)
+    hidden = (cw - visible) // h * (10 if (h, v) == (4, 4) else unit)
+    read = down * v * (across * unit // v) if visible == cw else across * down * unit
+    if len(body) < read:
+        raise ValueError("truncated TIFF strip or tile: too few bytes for its YCbCr blocks")
+    starts = (np.arange(down)[:, None] * (drawn * unit + hidden)
+              + np.arange(drawn)[None, :] * unit)
+    buf = np.zeros(int(starts.max()) + unit, np.uint8)
+    got = min(read, len(buf))
+    buf[:got] = np.frombuffer(body, np.uint8, got)
+    units = buf[starts[:, :, None] + np.arange(unit)]
+    luma = units[:, :, :h * v].reshape(down, drawn, v, h).transpose(0, 2, 1, 3)
+    out = np.zeros((down * v, across * h, 3), np.uint8)
+    out[:, :drawn * h, 0] = luma.reshape(down * v, drawn * h)
+    for i in (1, 2):
+        out[:, :drawn * h, i] = np.repeat(np.repeat(units[:, :, h * v + i - 1], v, axis=0),
+                                          h, axis=1)
+    return out[:cr, :cw]
+
+
+def _floats(fields, tag: int, n: int, default) -> list:
+    """A float field of n values as libtiff stores it: a RATIONAL is
+    ``(float)num / (float)den`` in float32 (0 where den is 0)."""
+    values = fields.get(tag)
+    if values is None:
+        return [np.float32(v) for v in default]
+    if len(values) == 2 * n:
+        pairs = zip(values[0::2], values[1::2])
+        return [np.float32(a) / np.float32(b) if b else np.float32(0) for a, b in pairs]
+    if len(values) != n:
+        raise ValueError(f"TIFF field {tag} of {len(values)} values, {n} expected")
+    return [np.float32(v) for v in values]
+
+
+def _ycbcr_tables(fields):
+    """``tif_color.c`` ``TIFFYCbCrToRGBInit`` in float32 and int32, as the
+    C code computes it: the tables indexed by the Y, Cb and Cr bytes (Y,
+    Cr -> R, Cb -> B, Cr -> G and Cb -> G, the last two scaled by 2^16)
+    from ``YCbCrCoefficients`` and ``ReferenceBlackWhite`` (their
+    defaults: 0.299, 0.587, 0.114 and 0, 255, 128, 255, 128, 255)."""
+    f32 = np.float32
+    red, green, blue = _floats(fields, _LUMA, 3, (0.299, 0.587, 0.114))
+    ref = _floats(fields, _REF_BLACK_WHITE, 6, (0, 255, 128, 255, 128, 255))
+    if not abs(green) > 1e-7 or np.isnan([red, blue]).any():
+        raise ValueError("TIFF YCbCrCoefficients that libtiff refuses")
+
+    def fix(x):  # FIX(): the product in float, + 0.5 in double, truncated
+        return int(float(f32(min(max(x, f32(0)), f32(2))) * f32(65536)) + 0.5)
+
+    f1, f3 = f32(2) - f32(2) * red, f32(2) - f32(2) * blue
+    d1, d2 = fix(f1), -fix(red * f1 / green)
+    d3, d4 = fix(f3), -fix(blue * f3 / green)
+
+    def code2v(c, black, white, top):  # Code2V() clamped to +-4096, truncated
+        span = f32(white - black)
+        step = (c - int(black)).astype(f32) * f32(top) / (span if span != 0 else f32(1))
+        return np.clip(step, f32(-4096), f32(4096)).astype(np.int64)
+
+    x = np.arange(-128, 128, dtype=np.int64)
+    half = f32(128)
+    cr = code2v(x, ref[4] - half, ref[5] - half, 127)
+    cb = code2v(x, ref[2] - half, ref[3] - half, 127)
+    luma = code2v(x + 128, ref[0], ref[1], 255)
+    return luma, (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16, d2 * cr, d4 * cb + 32768
+
+
+def _ycbcr_rgb(ycc: np.ndarray, fields) -> np.ndarray:
+    """YCbCr samples -> RGB by ``TIFFYCbCrtoRGB``, which libtiff's RGBA
+    interface applies for both routes."""
+    luma, cr_r, cb_b, cr_g, cb_g = _ycbcr_tables(fields)
+    y = luma[ycc[:, :, 0]]
+    cb, cr = ycc[:, :, 1], ycc[:, :, 2]
+    out = np.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb]], axis=2)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _pil_raw_ycbcr(data: bytes, fields, width: int, height: int) -> np.ndarray:
+    """PIL's reading of an uncompressed YCbCr page: ``TiffImagePlugin``
+    gives it the raw mode ``RGBX`` (meant for libtiff's RGBA output), so
+    its raw decoder takes 4 bytes a pixel from each strip's offset on,
+    the bytes as R, G and B, with no subsampling and no conversion (planar
+    pages: each plane as R, G, B at a byte a pixel), and fails ("image
+    file is truncated") where that runs past the end of the file.
+    ``ImageFile.load`` decodes the strips in the order of their offsets,
+    a strip covering the whole page from its last offset only."""
+    if _TILE_WIDTH in fields:
+        raise ValueError("uncompressed YCbCr TIFF in tiles is not read on the pil route")
+    planar = _one(fields, _PLANAR, 1)
+    step = _one(fields, _ROWS_PER_STRIP, height)
+    offsets = list(fields.get(_STRIP_OFFSETS, ()))
+    if step == height and planar != 2:
+        offsets = offsets[-1:]
+    tiles, y, layer = [], 0, 0
+    for offset in offsets:
+        tiles.append((offset, y, min(y + step, height), layer))
+        y += step
+        if y >= height:
+            y, layer = 0, layer + 1
+    tiles.sort(key=lambda t: t[0])
+    out = np.zeros((height, width, 3), np.uint8)
+    for offset, y0, y1, layer in tiles:
+        if planar != 2 or layer < 3:
+            px = 4 if planar != 2 else 1
+            n = (y1 - y0) * width * px
+            if offset + n > len(data):
+                raise ValueError("uncompressed YCbCr TIFF: PIL reads it as RGBX, 4 bytes a "
+                                 "pixel, past the end of the file (image file is truncated)")
+            rows = np.frombuffer(data, np.uint8, n, offset).reshape(y1 - y0, width, px)
+            if planar != 2:
+                out[y0:y1] = rows[:, :, :3]
+            else:
+                out[y0:y1, :, layer] = rows[:, :, 0]
+    return out
+
+
 def _jpeg_chunk(raw: bytes, fields, cw: int, cr: int, spp: int) -> np.ndarray:
     tables = fields.get(_JPEG_TABLES, (b"",))[0]
     if tables[:2] == b"\xff\xd8" and tables[-2:] == b"\xff\xd9" and raw[:2] == b"\xff\xd8":
@@ -489,8 +626,6 @@ def _samples(data: bytes):
     if photometric not in _BASE:
         name = _PHOTOMETRICS.get(photometric, f"code {photometric}")
         raise ValueError(f"TIFF photometric {name} ({photometric}) is not read")
-    if photometric == 6 and compression != 7:
-        raise ValueError("YCbCr TIFF is read inside JPEG compression only")
     spp = _one(fields, _SAMPLES, 1)
     bits_all = fields.get(_BITS, (1,))
     if len(set(bits_all)) != 1:
@@ -512,6 +647,9 @@ def _samples(data: bytes):
     planar = _one(fields, _PLANAR, 1)
     if planar not in (1, 2) or (planar == 2 and compression == 7):
         raise ValueError(f"TIFF PlanarConfiguration {planar} is not read here")
+    sub = (1, 1)
+    if photometric == 6 and compression != 7:
+        sub = _ycbcr_layout(fields, bits, spp, planar)
     tiled = _TILE_WIDTH in fields
     if tiled:
         cw, ch = _one(fields, _TILE_WIDTH), _one(fields, _TILE_LENGTH)
@@ -536,11 +674,32 @@ def _samples(data: bytes):
                 y0, x0 = ty * ch, tx * cw
                 rows = ch if tiled else min(ch, height - y0)
                 chunk = _chunk(data, fields, compression, (p * down + ty) * across + tx,
-                                     offsets, counts, cw, rows, chunk_spp, bits, end)
+                               offsets, counts, cw, rows, chunk_spp, bits, end, sub,
+                               min(cw, width - x0))
                 h, w = min(rows, height - y0), min(cw, width - x0)
                 sl = slice(p, p + 1) if planar == 2 else slice(None)
                 image[y0:y0 + h, x0:x0 + w, sl] = chunk[:h, :w]
     return image, fields, bits, photometric
+
+
+def _ycbcr_layout(fields, bits: int, spp: int, planar: int):
+    """The (h, v) subsampling of a YCbCr page outside JPEG, where libtiff's
+    RGBA interface reads it: 8 bits, 3 samples, chunky at 1x1, 1x2, 2x1,
+    2x2, 4x1, 4x2 or 4x4 (``YCbCrSubsampling``, default 2x2), planar at
+    1x1 only."""
+    if bits != 8 or spp != 3:
+        raise ValueError(f"YCbCr TIFF of {spp} samples at {bits} bits is not read "
+                         "(libtiff reads 3 at 8)")
+    if _one(fields, _FILL_ORDER, 1) != 1:
+        raise ValueError("YCbCr TIFF with FillOrder 2 is not read")
+    sub = tuple(int(v) for v in fields.get(_SUBSAMPLING, (2, 2))[:2])
+    allowed = ((1, 1),) if planar == 2 else ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2),
+                                              (4, 4))
+    if sub not in allowed:
+        raise ValueError(f"YCbCr TIFF subsampled {sub[0]}x{sub[1]}"
+                         f"{' in planes' if planar == 2 else ''} is not read (libtiff "
+                         "reads 1x1, 1x2, 2x1, 2x2, 4x1, 4x2 and 4x4, planes at 1x1)")
+    return sub
 
 
 def _gray8(v: np.ndarray, bits: int, route: str) -> np.ndarray:
@@ -608,6 +767,15 @@ def decode_tiff(data: bytes, route: str = "pil") -> np.ndarray:
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     data = bytes(data)
-    image, fields, bits, photometric = _samples(data)
-    rgb = _rgb(image, fields, bits, photometric, route)
+    _, fields = _ifd(data)
+    if (route == "pil" and _one(fields, _PHOTOMETRIC, 1) == 6
+            and _one(fields, _COMPRESSION, 1) == 1):
+        _samples(data)  # what the port refuses, it refuses on both routes
+        rgb = _pil_raw_ycbcr(data, fields, _one(fields, _WIDTH), _one(fields, _HEIGHT))
+    else:
+        image, fields, bits, photometric = _samples(data)
+        if photometric == 6 and _one(fields, _COMPRESSION, 1) != 7:
+            rgb = _ycbcr_rgb(image, fields)
+        else:
+            rgb = _rgb(image, fields, bits, photometric, route)
     return jpeg._orient(rgb, _one(fields, _ORIENTATION, 1))

@@ -688,6 +688,110 @@ def test_jpeg_progressive_scan_that_runs_out_of_data(restart):
             np.testing.assert_array_equal(jpeg.decode_jpeg(cut, route="pil"), want)
 
 
+# --- arithmetic coding and lossless JPEG, from encoders in tools/ (no
+# encoder installed here writes either)
+
+sys.path.insert(0, str(ROOT / "tools"))
+from jpeg_arith import transcode  # noqa: E402
+from jpeg_lossless import encode as _lossless  # noqa: E402
+
+ARITH_SOURCES = {
+    "420": lambda: _pil_jpeg(_image((40, 57), 11), quality=90),
+    "444_q100": lambda: _pil_jpeg(_image((17, 33), 12), quality=100, subsampling=0),
+    "422_odd": lambda: _pil_jpeg(_image((33, 17), 13), quality=95, subsampling=1),
+    "411_cv2": lambda: _cv2_jpeg(_image((24, 70), 14), cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
+    "gray": lambda: _pil_jpeg(_image((40, 57), 15)[..., :1], quality=85),
+    "cmyk": lambda: _jpeg_of(Image.fromarray(_image((24, 40), 16)).convert("CMYK"), 85),
+    "progressive_src": lambda: _pil_jpeg(_image((40, 57), 17), quality=50, progressive=True),
+}
+ARITH_MODES = {
+    "sequential": {}, "progressive": {"progressive": True}, "restart": {"restart": 3},
+    "progressive_restart": {"progressive": True, "restart": 2},
+    "dac": {"dac": {0: (2, 5), 1: (0, 0), 16: 2, 17: 40}},
+}
+
+
+def _jpeg_of(im: Image.Image, quality: int) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, "JPEG", quality=quality)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("mode", sorted(ARITH_MODES))
+@pytest.mark.parametrize("source", sorted(ARITH_SOURCES))
+def test_jpeg_arithmetic_transcodes_decode_as_their_originals(source, mode):
+    """Arithmetic-coded JPEG (SOF9 sequential, SOF10 progressive; DAC
+    conditioning, restart intervals) transcoded from Huffman originals by
+    tools/jpeg_arith.py: PIL and cv2 decode each to the bytes of their
+    decode of the original (arithmetic coding is lossless over the
+    coefficients: this holds the encoder, not the port), and the port's
+    jdarith.c equals both routes."""
+    original = ARITH_SOURCES[source]()
+    data = transcode(original, **ARITH_MODES[mode])
+    assert (b"\xff\xca" if "progressive" in mode else b"\xff\xc9") in data
+    for oracle in (_pil, _cv2):
+        np.testing.assert_array_equal(oracle(data), oracle(original))
+    _assert_both_routes(data)
+
+
+def test_jpeg_arithmetic_read_past_pil_first_block():
+    """PIL hands libjpeg the file's first 65536 bytes, and libjpeg's
+    arithmetic decoder cannot wait for more: an arithmetic-coded file whose
+    decoder reads past them fails in PIL (cv2 reads it), and the port's
+    pil route raises there. A comment segment moves the scan across the
+    boundary byte by byte."""
+    data = transcode(_pil_jpeg(_image((16, 24), 18), quality=90))
+    outcomes = set()
+    for length in range(65536 - len(data) - 8, 65536 - len(data) + 24):
+        padded = data[:2] + b"\xff\xfe" + struct.pack(">H", length) + bytes(length - 2) + data[2:]
+        np.testing.assert_array_equal(jpeg.decode_jpeg(padded, route="cv2"), _cv2(padded))
+        try:
+            want = _pil(padded)
+        except OSError:
+            outcomes.add("refused")
+            with pytest.raises(ValueError, match="PIL feeds"):
+                jpeg.decode_jpeg(padded, route="pil")
+            continue
+        outcomes.add("read")
+        np.testing.assert_array_equal(jpeg.decode_jpeg(padded, route="pil"), want)
+    assert outcomes == {"read", "refused"}
+
+
+LOSSLESS = {  # name: (components, jpeg_lossless.encode arguments)
+    "gray": (1, {}), "gray_pt2": (1, {"pt": 2}), "gray_rst": (1, {"restart_rows": 4}),
+    "rgb": (3, {"rgb": True}), "rgb_pt3_rst": (3, {"rgb": True, "pt": 3, "restart_rows": 5}),
+    "rgb_scans": (3, {"rgb": True, "interleaved": False}), "cmyk": (4, {"rgb": True}),
+}
+
+
+@pytest.mark.parametrize("predictor", range(1, 8))
+@pytest.mark.parametrize("case", sorted(LOSSLESS))
+def test_jpeg_lossless_by_each_route(case, predictor):
+    """Lossless JPEG (SOF3) from tools/jpeg_lossless.py, predictors 1-7,
+    point transforms, restart intervals, one scan or a scan a component:
+    PIL decodes each to the source samples (their low Pt bits cleared;
+    this holds the encoder), the port's jdpred.c undifferencing equals
+    both routes. cv2 refuses gray (it asks libjpeg-turbo for BGR, which
+    lossless mode does not convert to), and the port's cv2 route raises
+    there."""
+    n, kw = LOSSLESS[case]
+    src = _image((23, 31), predictor, channels=4)[..., :n]
+    data = _lossless(src, predictor, **kw)
+    pt = kw.get("pt", 0)
+    want = (src >> pt) << pt
+    if n == 1:
+        np.testing.assert_array_equal(_pil(data), np.repeat(want, 3, axis=2))
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+        with pytest.raises(ValueError, match="lossless gray"):
+            jpeg.decode_jpeg(data, route="cv2")
+        np.testing.assert_array_equal(jpeg.decode_jpeg(data, route="pil"), _pil(data))
+        return
+    if n == 3:
+        np.testing.assert_array_equal(_pil(data), want)
+    _assert_both_routes(data)
+
+
 def _with_marker(data: bytes, old: bytes, new: bytes) -> bytes:
     assert old in data
     return data.replace(old, new, 1)
@@ -695,14 +799,18 @@ def _with_marker(data: bytes, old: bytes, new: bytes) -> bytes:
 
 def test_jpeg_cases_that_raise():
     """What the port does not read raises on both routes, each message
-    naming the case. Both references fail on each of these too (PIL
-    raises, cv2 returns None), but for arithmetic coding, which
-    libjpeg-turbo decodes (here a Huffman scan read as arithmetic-coded)."""
+    naming the case, and both references fail on each (PIL raises, cv2
+    returns None): 12-bit samples, DNL, fractional sampling ratios, bad
+    progressive scans, cut files, hierarchical and lossless arithmetic-
+    coded frames (SOF5, SOF13, SOF11), lossless YCbCr (libjpeg-turbo
+    converts no colour in lossless mode). A Huffman scan under an SOF9
+    marker, once among them, decodes as arithmetic-coded data now, as
+    libjpeg-turbo decodes it, on both routes."""
     img = _image((24, 40), 9)
     base = _pil_jpeg(img, quality=80)
     rng = np.random.default_rng(0)
+    lossless = _lossless(img[:, :, 0])
     cases = {
-        "arithmetic": _with_marker(base, b"\xff\xc0", b"\xff\xc9"),
         "12-bit": base.replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x11\x0c", 1),
         "DNL": base.replace(b"\xff\xc0\x00\x11\x08\x00\x18", b"\xff\xc0\x00\x11\x08\x00\x00", 1),
         "whole ratios": _sequential_jpeg(rng, 21, 30, ((3, 1), (2, 1), (1, 1)), True, 0),
@@ -712,6 +820,10 @@ def test_jpeg_cases_that_raise():
             rng, 21, 30, ((1, 1),) * 3, [([0, 1, 2], 0, 0, 0, 0), ([0, 1, 2], 1, 5, 0, 0)]),
         "truncated": base[:len(base) // 2],
         "EOI": base[:-2],
+        "SOF5": _with_marker(base, b"\xff\xc0", b"\xff\xc5"),
+        "SOF13": _with_marker(base, b"\xff\xc0", b"\xff\xcd"),
+        "SOF11": _with_marker(lossless, b"\xff\xc3", b"\xff\xcb"),
+        "lossless YCC": _lossless(img),
     }
     cases["over 3 components"] = cases.pop("AC scan over 3 components")
     for match, data in cases.items():
@@ -719,14 +831,13 @@ def test_jpeg_cases_that_raise():
         for route in jpeg.ROUTES:
             with pytest.raises(ValueError, match=match):
                 jpeg.decode_jpeg(data, route=route)
-        if match == "arithmetic":
-            continue
         with pytest.raises(OSError):
             _pil(data)
         assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
     assert jpeg.jpeg_size(cases["whole ratios"]) == (30, 21)
     with pytest.raises(ValueError, match="route"):
         jpeg.decode_jpeg(base, route="tf")
+    _assert_both_routes(_with_marker(base, b"\xff\xc0", b"\xff\xc9"))
 
 
 def test_full_page_fixtures_equal_their_digests():
@@ -862,8 +973,8 @@ def test_bmp_cases_that_raise():
 def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
     """read_image_bgr decodes by content whatever the extension (a PNG
     named .jpg, a JPEG named .png), as PIL does; image_size reads each
-    format's header as PIL's .size; a TIFF page reads; other formats
-    raise."""
+    format's header as PIL's .size; a TIFF page and a GIF page read;
+    formats the port does not read yet (WebP) raise, naming what it reads."""
     img = _image((21, 34), 11)
     files = {"png.jpg": None, "jpeg.png": _pil_jpeg(img, quality=85),
              "bmp.dat": _pil_bmp(img, "RGB")}
@@ -875,10 +986,14 @@ def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
         got = read_image_bgr(tmp_path / name)
         assert got.dtype == np.float32 and np.array_equal(got, want), name
         assert image_size(tmp_path / name) == Image.open(tmp_path / name).size == (34, 21)
-    Image.fromarray(img).save(tmp_path / "page.gif")
+    Image.fromarray(img).save(tmp_path / "page.webp")
     for fn in (read_image_bgr, image_size):
         with pytest.raises(ValueError, match="JPEG"):
-            fn(tmp_path / "page.gif")
+            fn(tmp_path / "page.webp")
+    Image.fromarray(img).save(tmp_path / "page.gif")  # GIF: data/gif.py
+    want = np.asarray(Image.open(tmp_path / "page.gif").convert("RGB"))[:, :, ::-1]
+    np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.gif"), want)
+    assert image_size(tmp_path / "page.gif") == (34, 21)
     Image.fromarray(img).save(tmp_path / "page.tif")  # TIFF: data/tiff.py
     want = np.asarray(Image.open(tmp_path / "page.tif").convert("RGB"))[:, :, ::-1]
     np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.tif"), want)
@@ -887,9 +1002,10 @@ def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
 
 def test_no_fallback_decoder(tmp_path):
     """With PIL, cv2, jax and tdnet poisoned in sys.modules, read_image_bgr
-    still decodes a JPEG (sequential and progressive), a BMP (raw and
-    RLE8) and TIFF pages (LZW with a predictor, CCITT G4, JPEG), to the
-    pixels PIL gives here."""
+    still decodes a JPEG (sequential, progressive, arithmetic-coded and
+    lossless), a BMP (raw and RLE8), TIFF pages (LZW with a predictor,
+    CCITT G4, JPEG, YCbCr), a PPM, a GIF and a byte-encoded Sun raster,
+    to the pixels PIL gives here."""
     img = _image((30, 41), 12)
     page = Image.fromarray(img)
     rle = bytes([3, 1, 3, 2, 0, 0, 2, 3, 4, 0, 0, 0, 6, 1, 0, 0, 0, 1])
@@ -901,10 +1017,21 @@ def test_no_fallback_decoder(tmp_path):
                       compression=1)[:-24] + rle,
     }
     for name, kw in (("l.tif", dict(compression="tiff_lzw", tiffinfo={317: 2})),
-                     ("g.tif", dict(compression="group4")), ("j.tif", dict(compression="jpeg"))):
+                     ("g.tif", dict(compression="group4")), ("j.tif", dict(compression="jpeg")),
+                     ("y.tif", dict(compression="tiff_lzw"))):
         buf = io.BytesIO()
-        (page.convert("1") if name == "g.tif" else page).save(buf, "TIFF", **kw)
+        im = {"g.tif": page.convert("1"), "y.tif": page.convert("YCbCr")}.get(name, page)
+        im.save(buf, "TIFF", **kw)
         files[name] = buf.getvalue()
+    for name, fmt in (("p.ppm", "PPM"), ("g.gif", "GIF")):
+        buf = io.BytesIO()
+        page.save(buf, fmt)
+        files[name] = buf.getvalue()
+    files["ar.jpg"] = transcode(files["a.jpg"], progressive=True)
+    files["ll.jpg"] = _lossless(img, 5, rgb=True)
+    cmap = bytes(range(0, 256, 16)) * 3
+    files["s.ras"] = struct.pack(">8I", 0x59A66A95, 3, 2, 8, 7, 2, 1, 48) + cmap + bytes(
+        [0x80, 2, 7, 9, 0x80, 0, 4])
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
         np.save(tmp_path / (name + ".npy"), _pil(data)[:, :, ::-1])

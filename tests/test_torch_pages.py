@@ -1,9 +1,11 @@
-"""The page formats of ``data/jpeg.py``, ``data/bmp.py`` and ``data/tiff.py``
-through the whole slice on the CPU: a CSV of a progressive JPEG, a CMYK
-JPEG, an RLE8 BMP and two TIFFs (CCITT G4, LZW with a predictor) through
-the reference's and the port's ``BatchLoader`` (equal batches), then the
-port's ``Predictor`` and the reference's on the decoded pages with the
-variables ``tdnet_torch/weights.py`` carries over (equal detections, at
+"""The page formats of ``data/jpeg.py``, ``data/bmp.py``, ``data/tiff.py``,
+``data/pnm.py`` and ``data/gif.py`` through the whole slice on the CPU: a
+CSV of a progressive JPEG, a CMYK JPEG, an RLE8 BMP, two TIFFs (CCITT G4,
+LZW with a predictor), a binary PPM, a GIF, a YCbCr LZW TIFF and an
+arithmetic-coded JPEG through the reference's and the port's
+``BatchLoader`` (equal batches), then the port's ``Predictor`` and the
+reference's on the decoded pages with the variables
+``tdnet_torch/weights.py`` carries over (equal detections, at
 ``tests/test_torch_predictor.py``'s tolerances); and the golden full-size
 pages' digests (``tools/make_pages.py``)."""
 
@@ -11,6 +13,7 @@ import hashlib
 import io
 import json
 import struct
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -21,6 +24,8 @@ from tdnet_torch.data import image as port_image
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden" / "pages"
+sys.path.insert(0, str(ROOT / "tools"))
+from jpeg_arith import transcode  # noqa: E402
 
 
 def _page(shape, seed):
@@ -70,9 +75,10 @@ def _save(im: Image.Image, fmt: str, **kw) -> bytes:
 
 @pytest.fixture(scope="module")
 def csv_pages(tmp_path_factory):
-    """annotations.csv and classes.csv over five pages, one a format."""
+    """annotations.csv and classes.csv over nine pages, one a format."""
     root = tmp_path_factory.mktemp("pages")
-    shapes = [(64, 96), (96, 64), (70, 100), (64, 96), (100, 70)]
+    shapes = [(64, 96), (96, 64), (70, 100), (64, 96), (100, 70), (64, 96), (96, 64),
+              (70, 100), (64, 96)]
     makers = {
         "progressive.jpg": lambda im: _save(im, "JPEG", quality=90, progressive=True),
         "cmyk.jpg": lambda im: _save(im.convert("CMYK"), "JPEG", quality=90),
@@ -80,6 +86,10 @@ def csv_pages(tmp_path_factory):
         "g4.tif": lambda im: _save(im.convert("L").point(lambda v: 255 * (v > 160)).convert("1"),
                                    "TIFF", compression="group4"),
         "lzw.tif": lambda im: _save(im, "TIFF", compression="tiff_lzw", tiffinfo={317: 2}),
+        "page.ppm": lambda im: _save(im, "PPM"),
+        "page.gif": lambda im: _save(im.convert("P", palette=Image.Palette.ADAPTIVE), "GIF"),
+        "ycc_lzw.tif": lambda im: _save(im.convert("YCbCr"), "TIFF", compression="tiff_lzw"),
+        "arith.jpg": lambda im: transcode(_save(im, "JPEG", quality=85), progressive=True),
     }
     rows = []
     for i, ((name, make), shape) in enumerate(zip(makers.items(), shapes)):
@@ -176,21 +186,43 @@ def test_predictor_over_the_pages_matches_reference(csv_pages):
     jax.clear_caches()
 
 
+# the golden pages whose decode in Python takes a second or more a route:
+# chip_smoke.py's pages phase checks them at full size
+SLOW_PAGES = ("arith_seq.jpg", "arith_prog.jpg", "arith_big.jpg", "lossless.jpg")
+
+
 def test_golden_pages_equal_their_digests():
-    """tests/golden/pages (tools/make_pages.py): the eight full-size pages
-    decode by both routes to the SHA-256 the references gave (the CMYK
-    page's routes apart), and their sizes read from the headers."""
+    """tests/golden/pages (tools/make_pages.py): the full-size pages decode
+    by both routes to the SHA-256 the references gave (the CMYK page's
+    routes apart), a route the reference refuses raises (the RLE Sun
+    raster on cv2's), and their sizes read from the headers. The file
+    lists all sixteen pages; this test decodes the cheap ones, the eight
+    of earlier slices and ycc_lzw.tif, page.pbm, page.gif and rle.ras,
+    and leaves the arithmetic-coded and lossless JPEGs (SLOW_PAGES) to
+    the card's pages phase, which decodes them all."""
     digests = json.loads((GOLDEN / "digests.json").read_text())
-    assert len(digests) == 8
+    assert len(digests) == 16
     for name, info in digests.items():
-        data = (GOLDEN / name).read_bytes()
-        rgb = port_image.decode_image(data, route="pil")
-        bgr = np.ascontiguousarray(port_image.decode_image(data, route="cv2")[:, :, ::-1])
-        assert hashlib.sha256(rgb.tobytes()).hexdigest() == info["pil_rgb_sha256"], name
-        assert hashlib.sha256(bgr.tobytes()).hexdigest() == info["cv2_bgr_sha256"], name
-        assert list(bgr.shape) == info["cv2_shape"]
-        assert np.array_equal(rgb, bgr[:, :, ::-1]) == info["routes_equal"], name
         assert list(port_image.image_size(GOLDEN / name)) == info["size"]
+        if name in SLOW_PAGES:
+            continue
+        data = (GOLDEN / name).read_bytes()
+        decoded = {}
+        for route in ("pil", "cv2"):
+            if route in info.get("refused", {}):
+                with pytest.raises(ValueError):
+                    port_image.decode_image(data, route=route)
+                continue
+            decoded[route] = port_image.decode_image(data, route=route)
+        if "pil" in decoded:
+            rgb = decoded["pil"]
+            assert hashlib.sha256(rgb.tobytes()).hexdigest() == info["pil_rgb_sha256"], name
+        if "cv2" in decoded:
+            bgr = np.ascontiguousarray(decoded["cv2"][:, :, ::-1])
+            assert hashlib.sha256(bgr.tobytes()).hexdigest() == info["cv2_bgr_sha256"], name
+            assert list(bgr.shape) == info["cv2_shape"]
+        if len(decoded) == 2:
+            assert np.array_equal(rgb, bgr[:, :, ::-1]) == info["routes_equal"], name
 
 
 def test_bf16_train_cli_on_the_cpu_stays_finite(tmp_path):

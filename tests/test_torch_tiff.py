@@ -134,10 +134,25 @@ def _pack_rows(block: np.ndarray, bits: int, end: str) -> bytes:
     return np.packbits(bitplanes.astype(np.uint8), axis=1).tobytes()
 
 
+def _ycbcr_units(block: np.ndarray, h: int, v: int) -> bytes:
+    """(rows, cols, 3) YCbCr samples -> subsampled data units: h * v luma
+    samples row by row, then the unit's mean Cb and Cr; a partial unit at
+    an edge is padded by repeating the last row and column."""
+    rows, cols = block.shape[:2]
+    full = np.pad(block, ((0, -rows % v), (0, -cols % h), (0, 0)), mode="edge")
+    down, across = full.shape[0] // v, full.shape[1] // h
+    units = full.reshape(down, v, across, h, 3).transpose(0, 2, 1, 3, 4).reshape(
+        down, across, v * h, 3)
+    chroma = (units[:, :, :, 1:].mean(axis=2) + 0.5).astype(np.int64)
+    return np.concatenate([units[:, :, :, 0], chroma], axis=2).astype(np.uint8).tobytes()
+
+
 def _tiff(samples, bits=8, photometric=2, *, compression=1, big_endian=False, tile=None,
-          planar=1, rows_per_strip=None, predictor=1, fill_order=1, tags=None) -> bytes:
+          planar=1, rows_per_strip=None, predictor=1, fill_order=1, tags=None,
+          subsampling=None) -> bytes:
     """A one-page TIFF of (H, W, spp) samples. ``tile``: (width, length);
-    ``tags``: more fields, tag -> (type, values)."""
+    ``tags``: more fields, tag -> (type, values); ``subsampling``: (h, v)
+    of YCbCr samples, written as data units (``YCbCrSubsampling``)."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[:, :, None]
@@ -158,7 +173,11 @@ def _tiff(samples, bits=8, photometric=2, *, compression=1, big_endian=False, ti
                 block[:part.shape[0], :part.shape[1]] = part
                 if predictor == 2:
                     block[:, 1:] = (block[:, 1:] - block[:, :-1]) % (1 << bits)
-                raw = _pack_rows(block, bits, end)
+                if subsampling and subsampling != (1, 1):
+                    raw = _ycbcr_units(block[:part.shape[0]] if not tile else block,
+                                       *subsampling)
+                else:
+                    raw = _pack_rows(block, bits, end)
                 if compression == 5:
                     raw = _lzw_encode(raw)
                 elif compression == 8:
@@ -172,6 +191,8 @@ def _tiff(samples, bits=8, photometric=2, *, compression=1, big_endian=False, ti
               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
     if predictor != 1:
         fields[317] = (3, [predictor])
+    if subsampling:
+        fields[530] = (3, list(subsampling))
     if fill_order != 1:
         fields[266] = (3, [fill_order])
     if tile:
@@ -179,7 +200,7 @@ def _tiff(samples, bits=8, photometric=2, *, compression=1, big_endian=False, ti
     else:
         fields[278] = (3, [ch])
     fields.update(tags or {})
-    codes = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B"}
+    codes = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 7: "B"}  # 5: RATIONAL, as pairs
     # layout: header, chunk data, then out-of-line values, then the IFD
     body = bytearray(8)
     offsets = []
@@ -193,7 +214,7 @@ def _tiff(samples, bits=8, photometric=2, *, compression=1, big_endian=False, ti
         kind, values = fields[tag]
         raw = values if isinstance(values, bytes) else struct.pack(
             f"{end}{len(values)}{codes[kind]}", *values)
-        count = len(raw) // struct.calcsize(codes[kind])
+        count = len(raw) // struct.calcsize(codes[kind]) // (2 if kind == 5 else 1)
         if len(raw) <= 4:
             entries.append(struct.pack(end + "HHI", tag, kind, count) + raw.ljust(4, b"\0"))
         else:
@@ -417,17 +438,86 @@ def test_tiff_cmyk16_alpha_and_fill_order():
     _assert_both_routes(_tiff(rng.integers(0, 2, (9, 11)), 1, 0, fill_order=2))
 
 
+def _assert_routes_or_same_refusal(data: bytes):
+    """Both routes equal their references, or the port raises on a route
+    whose reference refuses the file (PIL's "image file is truncated" on
+    uncompressed YCbCr, which it reads as RGBX), naming the case."""
+    for route, oracle in (("pil", _pil), ("cv2", _cv2)):
+        try:
+            want = oracle(data)
+        except OSError as e:
+            assert "truncated" in str(e), (route, e)
+            with pytest.raises(ValueError, match="image file is truncated"):
+                tiff.decode_tiff(data, route=route)
+            continue
+        np.testing.assert_array_equal(tiff.decode_tiff(data, route=route), want, err_msg=route)
+
+
+def test_tiff_ycbcr_outside_jpeg_from_pil():
+    """YCbCr pages as PIL writes them (1x1, PackBits, LZW, deflate, and
+    uncompressed with ReferenceBlackWhite): libtiff's TIFFYCbCrtoRGB on
+    both routes; uncompressed, PIL reads 4 bytes a pixel and runs past
+    the end of the file, and the port's pil route raises as it does."""
+    page = Image.fromarray(_image((40, 57), 11)).convert("YCbCr")
+    for compression in ("packbits", "tiff_lzw", "tiff_adobe_deflate"):
+        _assert_both_routes(_pil_tiff(page, compression=compression))
+    raw = _pil_tiff(page, compression="raw")
+    assert 532 in Image.open(io.BytesIO(raw)).tag_v2
+    with pytest.raises(OSError, match="image file is truncated"):
+        _pil(raw)
+    with pytest.raises(ValueError, match="image file is truncated"):
+        tiff.decode_tiff(raw, route="pil")
+    np.testing.assert_array_equal(tiff.decode_tiff(raw, route="cv2"), _cv2(raw))
+
+
+@pytest.mark.parametrize("subsampling", [(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_tiff_ycbcr_subsampled_outside_jpeg(subsampling):
+    """Subsampled YCbCr data units (the test's own writer: neither library
+    writes them) in LZW strips and tiles and uncompressed, at sizes whose
+    edges cut the units: libtiff's putcontig8bitYCbCr tiles on both routes,
+    its 4x4 misreads included (a strip's short read, a tile's hidden units
+    skipped as 10 bytes). Uncompressed, PIL reads the bytes as RGBX: a page
+    whose data lies far enough before the end decodes (as garbage), the
+    others raise."""
+    rng = np.random.default_rng(sum(subsampling))
+    for shape in ((40, 57), (7, 9), (16, 16)):
+        ycc = np.asarray(Image.fromarray(_image(shape, int(rng.integers(99)))).convert("YCbCr"))
+        _assert_both_routes(_tiff(ycc, 8, 6, compression=5, subsampling=subsampling))
+        _assert_routes_or_same_refusal(_tiff(ycc, 8, 6, subsampling=subsampling))
+    _assert_both_routes(_tiff(ycc[:, :, :], 8, 6, compression=8, subsampling=subsampling,
+                              rows_per_strip=8))
+    ycc = np.asarray(Image.fromarray(_image((40, 57), 12)).convert("YCbCr"))
+    _assert_both_routes(_tiff(ycc, 8, 6, compression=5, subsampling=subsampling, tile=(16, 16)))
+
+
+def test_tiff_ycbcr_coefficients_reference_and_planes():
+    """YCbCrCoefficients and ReferenceBlackWhite (RATIONAL; BT.709 and
+    video range) in libtiff's float tables, the default 2x2 subsampling of
+    a page without the field, and planar YCbCr at 1x1 (PIL's raw decoder
+    takes the planes as R, G and B unconverted)."""
+    ycc = np.asarray(Image.fromarray(_image((24, 30), 13)).convert("YCbCr"))
+    video = {532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])}
+    bt709 = {529: (5, [2126, 10000, 7152, 10000, 722, 10000])}
+    for tags, sub in ((video, (1, 1)), (bt709, (2, 2)), ({**video, **bt709}, (2, 1))):
+        _assert_both_routes(_tiff(ycc, 8, 6, compression=5, subsampling=sub, tags=tags))
+    _assert_both_routes(_tiff(ycc, 8, 6, compression=5))
+    _assert_both_routes(_tiff(ycc, 8, 6, compression=5, planar=2, subsampling=(1, 1)))
+    _assert_both_routes(_tiff(ycc, 8, 6, planar=2, subsampling=(1, 1)))
+
+
 def test_tiff_cases_that_raise():
     """What the port does not read raises on both routes with a message
-    that names it."""
+    that names it; a YCbCr page outside JPEG, once among them, decodes."""
     img = _image((12, 16), 9)
     page = Image.fromarray(img)
     cases = {
         "old-style JPEG": _tiff(img, compression=6),
         "CCITT modified Huffman RLE": _pil_tiff(page.convert("1"), compression="tiff_ccitt"),
         "Zstandard": _tiff(img, compression=50000),
-        "YCbCr TIFF is read inside JPEG": _pil_tiff(page.convert("YCbCr"),
-                                                    compression="tiff_lzw"),
+        "subsampled 2x2 in planes": _tiff(img, photometric=6, compression=5, planar=2),
+        "YCbCr TIFF of 4 samples": _tiff(np.dstack([img, img[:, :, :1]]), photometric=6,
+                                         compression=5, subsampling=(1, 1)),
         "CIE L\\*a\\*b\\*": _tiff(img, photometric=8),
         "Predictor 3": _tiff(img, compression=5, predictor=3),
         "sample format": _tiff(img, tags={339: (3, [3, 3, 3])}),
@@ -442,6 +532,8 @@ def test_tiff_cases_that_raise():
                 tiff.decode_tiff(data, route=route)
     with pytest.raises(ValueError, match="route"):
         tiff.decode_tiff(_tiff(img), route="tf")
+    # read outside JPEG since YCbCr's conversion was ported; both routes
+    _assert_both_routes(_pil_tiff(page.convert("YCbCr"), compression="tiff_lzw"))
 
 
 def test_tiff_through_read_image_and_image_size(tmp_path):

@@ -20,7 +20,25 @@ pages come from tools/make_jpeg_pages.py's ``table_page`` with seed 8:
   own: neither PIL nor cv2 writes RLE), the page's colours as its palette;
 - ``g4.tif``: the page thresholded to bilevel, CCITT Group 4 (PIL);
 - ``lzw_pred.tif``: RGB, LZW with Predictor 2 (PIL);
-- ``jpeg_ycc.tif``: YCbCr, JPEG compression with JPEGTables (PIL).
+- ``jpeg_ycc.tif``: YCbCr, JPEG compression with JPEGTables (PIL);
+- ``ycc_lzw.tif``: YCbCr outside JPEG, LZW (PIL);
+- ``page.pbm``: the page thresholded to bilevel, binary PBM (P4, PIL);
+- ``page.gif``: GIF, an adaptive palette of the page's colours (PIL);
+- ``arith_seq.jpg``, ``arith_prog.jpg``: sequential (SOF9) and progressive
+  (SOF10) arithmetic-coded JPEG, quality 75, transcoded from PIL's Huffman
+  JPEG by tools/jpeg_arith.py;
+- ``arith_big.jpg``: sequential arithmetic-coded JPEG, quality 90, whose
+  entropy-coded data runs past the first 65536 bytes: PIL refuses it
+  (libjpeg's arithmetic decoder cannot wait for the rest of the file),
+  cv2 reads it;
+- ``lossless.jpg``: lossless JPEG (SOF3), RGB, predictor 7, of the page at
+  half size (550x425, boxes halved), by tools/jpeg_lossless.py;
+- ``rle.ras``: 8-bit Sun raster, byte-encoded (type 2), the page's colours
+  as its colormap (an encoder of this tool's own): PIL reads it, cv2
+  refuses the type.
+
+Where a reference refuses a page, ``digests.json`` holds null for its
+digest and the reason under ``refused`` (PIL's exception, or cv2's None).
 
 The GPU machine has neither PIL nor cv2, so the files are made here and
 committed. Run from the repo root:  python tools/make_pages.py
@@ -30,6 +48,7 @@ import hashlib
 import io
 import json
 import os
+import struct
 import sys
 
 import cv2
@@ -37,10 +56,13 @@ import numpy as np
 from PIL import Image
 
 sys.path.insert(0, os.path.dirname(__file__))
+from jpeg_arith import transcode  # noqa: E402
+from jpeg_lossless import encode as lossless_jpeg  # noqa: E402
 from make_jpeg_pages import LANDSCAPE, table_page  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "golden", "pages")
-SEED = 8  # the first seed whose eight pages table_page draws without an empty range
+SEED = 8  # the first seed whose pages table_page draws without an empty range
+N_PAGES = 16
 
 
 def pil_bytes(im: Image.Image, fmt: str, **kw) -> bytes:
@@ -92,11 +114,50 @@ def rle8_bmp(rgb) -> bytes:
             + np.array([offset], "<u4").tobytes() + info + palette + bytes(stream))
 
 
+def rle_ras(rgb) -> bytes:
+    """An 8-bit byte-encoded (type 2) Sun raster of a page of at most 256
+    colours, its colormap as three planes: runs of 3 or more as 0x80 n v,
+    a 0x80 byte as 0x80 0, rows of whole bytes as PIL decodes them."""
+    h, w = rgb.shape[:2]
+    colours, index = np.unique(rgb.reshape(-1, 3), axis=0, return_inverse=True)
+    assert len(colours) <= 256, f"{len(colours)} colours"
+    raw, out, i = index.astype(np.uint8).tobytes(), bytearray(), 0
+    while i < len(raw):
+        run = 1
+        while i + run < len(raw) and run < 256 and raw[i + run] == raw[i]:
+            run += 1
+        if run >= 3:
+            out += bytes([0x80, run - 1, raw[i]])
+        elif raw[i] == 0x80:
+            out += b"\x80\x00" * run
+        else:
+            out += raw[i:i + run]
+        i += run
+    cmap = colours.T.astype(np.uint8).tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, 8, len(out), 2, 1, len(cmap)) + cmap + bytes(out)
+
+
+def reference_decodes(data: bytes):
+    """(PIL's RGB decode or None, cv2's BGR decode or None, the refusals)."""
+    refused = {}
+    try:
+        pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    except (OSError, ValueError) as e:
+        pil, refused["pil"] = None, f"{type(e).__name__}: {e}"
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    if bgr is None:
+        refused["cv2"] = "cv2.imdecode returned None"
+    return pil, bgr, refused
+
+
 def main():
     rng = np.random.default_rng(SEED)
     os.makedirs(OUT, exist_ok=True)
-    pages = [table_page(rng, LANDSCAPE) for _ in range(8)]
+    pages = [table_page(rng, LANDSCAPE) for _ in range(N_PAGES)]
+    pages[14] = (np.ascontiguousarray(pages[14][0][::2, ::2]),
+                 [[v // 2 for v in b] for b in pages[14][1]])
     page = [Image.fromarray(p) for p, _ in pages]
+    bilevel9 = page[9].convert("L").point(lambda v: 255 if v > 160 else 0).convert("1")
     bilevel = page[5].convert("L").point(lambda v: 255 if v > 160 else 0).convert("1")
     files = {
         "prog_pil.jpg": pil_bytes(page[0], "JPEG", quality=90, subsampling=2, progressive=True),
@@ -111,25 +172,34 @@ def main():
         "lzw_pred.tif": pil_bytes(page[6], "TIFF", compression="tiff_lzw",
                                   tiffinfo={317: 2}),
         "jpeg_ycc.tif": pil_bytes(page[7].convert("YCbCr"), "TIFF", compression="jpeg"),
+        "ycc_lzw.tif": pil_bytes(page[8].convert("YCbCr"), "TIFF", compression="tiff_lzw"),
+        "page.pbm": pil_bytes(bilevel9, "PPM"),
+        "page.gif": pil_bytes(page[10].convert("P", palette=Image.Palette.ADAPTIVE), "GIF"),
+        "arith_seq.jpg": transcode(pil_bytes(page[11], "JPEG", quality=75)),
+        "arith_prog.jpg": transcode(pil_bytes(page[12], "JPEG", quality=75), progressive=True),
+        "arith_big.jpg": transcode(pil_bytes(page[13], "JPEG", quality=90)),
+        "lossless.jpg": lossless_jpeg(pages[14][0], 7, rgb=True),
+        "rle.ras": rle_ras(pages[15][0]),
     }
     digests = {}
     for (name, data), (_, boxes) in zip(files.items(), pages):
         with open(os.path.join(OUT, name), "wb") as f:
             f.write(data)
-        pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
-        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-        assert bgr is not None, name
+        pil, bgr, refused = reference_decodes(data)
+        assert len(refused) < 2, (name, refused)
         digests[name] = {
             "bytes": len(data),
             "size": list(Image.open(io.BytesIO(data)).size),
-            "cv2_shape": list(bgr.shape),
-            "pil_rgb_sha256": hashlib.sha256(pil.tobytes()).hexdigest(),
-            "cv2_bgr_sha256": hashlib.sha256(bgr.tobytes()).hexdigest(),
-            "routes_equal": bool(np.array_equal(pil, bgr[:, :, ::-1])),
+            "cv2_shape": list((bgr if bgr is not None else pil).shape),
+            "pil_rgb_sha256": None if pil is None else hashlib.sha256(pil.tobytes()).hexdigest(),
+            "cv2_bgr_sha256": None if bgr is None else hashlib.sha256(bgr.tobytes()).hexdigest(),
+            "routes_equal": None if refused else bool(np.array_equal(pil, bgr[:, :, ::-1])),
             "boxes": [[int(v) for v in b] for b in boxes],
         }
-        print(name, len(data), "bytes", digests[name]["size"], bgr.shape,
-              "routes equal" if digests[name]["routes_equal"] else "routes differ")
+        if refused:
+            digests[name]["refused"] = refused
+        print(name, len(data), "bytes", digests[name]["size"], refused or (
+            "routes equal" if digests[name]["routes_equal"] else "routes differ"))
     with open(os.path.join(OUT, "digests.json"), "w") as f:
         json.dump(digests, f, indent=1)
         f.write("\n")
