@@ -49,9 +49,10 @@ family):
   Pascal VOC, COCO (``--coco``), Open Images and KITTI layouts,
   ``predict`` and ``serve``;
 - the other page formats (``tests/golden/pages``: progressive, CMYK and
-  4:1:1 JPEG, RLE8 BMP, CCITT G4, LZW and JPEG TIFF; both decode routes
-  held to the references' digests) through ``train csv``, ``predict`` and
-  ``serve``;
+  4:1:1 JPEG, RLE8 BMP, CCITT G4, LZW and JPEG TIFF, PBM, GIF, arithmetic
+  and lossless JPEG, Sun raster, lossless and lossy WebP; both decode
+  routes held to the references' digests) through ``train csv``,
+  ``predict`` and ``serve``;
 - data parallelism: ``train --distributed`` in two child ranks (one card:
   they share it over gloo; more: a card each over NCCL), plain and with
   ``--zero`` (its bundle byte-equal to plain's), an f32 step against one
@@ -3198,10 +3199,13 @@ def phase_pages(dev):
     and 4:1:1 JPEG, an RLE8 BMP, CCITT G4, LZW-with-predictor,
     JPEG-compressed and YCbCr LZW TIFF, a P4 PBM, a GIF, sequential and
     progressive arithmetic-coded JPEG, lossless JPEG, a byte-encoded Sun
-    raster) decoded by both routes, each SHA-256 equal to the references'
-    in ``digests.json``, each route a reference refuses raising (PIL's
-    on the arithmetic page past its first 64 KiB, cv2's on the Sun
-    raster), and ``image_size`` equal to PIL's size; a CSV of the pages
+    raster, and WebP: lossless with a palette and with thousands of
+    colours, lossy, lossy with alpha, lossy with EXIF orientation 6 (the
+    routes part: cv2 turns it), lossy with the simple filter in 4
+    partitions) decoded by both routes, each SHA-256 equal to the
+    references' in ``digests.json``, each route a reference refuses
+    raising (PIL's on the arithmetic page past its first 64 KiB, cv2's on
+    the Sun raster), and ``image_size`` equal to PIL's size; a CSV of the pages
     the file route reads -> ``train csv`` (bf16, batch 2, 2 steps, the
     fused stem and its backward kernel); ``predict`` on those files (each
     page's detections a direct predictor's on the file route's decode);
@@ -3318,7 +3322,7 @@ def phase_pages(dev):
     # 4. serve: every file as a body, one at a time
     ctypes = {".jpg": "image/jpeg", ".bmp": "image/bmp", ".tif": "image/tiff",
               ".pbm": "image/x-portable-bitmap", ".gif": "image/gif",
-              ".ras": "image/x-sun-raster"}
+              ".ras": "image/x-sun-raster", ".webp": "image/webp"}
     direct = predictor(thr)
     base, httpd, batcher = _serve(predictor(thr), max_batch=4,
                                   max_delay_ms=SERVE_MAX_DELAY_MS, default_threshold=thr)

@@ -1,11 +1,12 @@
 """Host-side image reading and preprocessing in numpy, the counterpart of
 ``tdnet/data/image.py``.
 
-:func:`read_image_bgr` decodes PNG, JPEG, BMP, TIFF, PNM, GIF and Sun
-raster pages with the port's own decoders (``data/png.py``, ``jpeg.py``,
-``bmp.py``, ``tiff.py``, ``pnm.py``, ``gif.py``, ``sunras.py``: zlib and
-numpy), byte for byte as the reference's PIL ``convert("RGB")`` does, and
-reads ``.npy`` arrays. The format is sniffed from the content, as PIL does,
+:func:`read_image_bgr` decodes PNG, JPEG, BMP, TIFF, PNM, GIF, Sun raster
+and WebP pages with the port's own decoders (``data/png.py``, ``jpeg.py``,
+``bmp.py``, ``tiff.py``, ``pnm.py``, ``gif.py``, ``sunras.py``,
+``webp.py`` with ``vp8.py`` and ``vp8l.py``: zlib and numpy), byte for
+byte as the reference's PIL ``convert("RGB")`` does, and reads ``.npy``
+arrays. The format is sniffed from the content, as PIL does,
 not taken from the file's extension.
 
 The GPU machine has neither cv2 nor PIL, so :func:`resize_image` is a numpy
@@ -25,7 +26,7 @@ from typing import Tuple
 
 import numpy as np
 
-from tdnet_torch.data import bmp, gif, jpeg, png, pnm, sunras, tiff
+from tdnet_torch.data import bmp, gif, jpeg, png, pnm, sunras, tiff, webp
 
 __all__ = [
     "CAFFE_MEAN_BGR",
@@ -43,16 +44,16 @@ __all__ = [
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], dtype=np.float32)
 
 
-READS = "; ".join(m.READS for m in (png, jpeg, bmp, tiff, pnm, gif, sunras))
+READS = "; ".join(m.READS for m in (png, jpeg, bmp, tiff, pnm, gif, sunras, webp))
 
 
 def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
-    """PNG, JPEG, BMP, TIFF, PNM, GIF or Sun raster bytes, told apart by
-    their first bytes -> (H, W, 3) uint8 RGB by the rule of ``route``:
+    """PNG, JPEG, BMP, TIFF, PNM, GIF, Sun raster or WebP bytes, told apart
+    by their first bytes -> (H, W, 3) uint8 RGB by the rule of ``route``:
     ``"pil"`` (files: PIL's ``convert("RGB")``) or ``"cv2"`` (serve bodies:
-    ``cv2.imdecode(..., IMREAD_COLOR)``, which turns a JPEG by its EXIF
-    orientation; both turn a TIFF by its ``Orientation``). A file that the
-    route's reference refuses raises, naming the case."""
+    ``cv2.imdecode(..., IMREAD_COLOR)``, which turns a JPEG or WebP by its
+    EXIF orientation; both turn a TIFF by its ``Orientation``). A file that
+    the route's reference refuses raises, naming the case."""
     if data.startswith(png.SIGNATURE):
         return png.decode_png(data, sixteen_bit=route)
     if data.startswith(jpeg.SIGNATURE):
@@ -67,6 +68,8 @@ def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
         return gif.decode_gif(data, route=route)
     if data.startswith(sunras.SIGNATURE):
         return sunras.decode_sunras(data, route=route)
+    if webp.is_webp(data) or (route == "cv2" and webp.is_bare_bitstream(data)):
+        return webp.decode_webp(data, route=route)
     raise ValueError(f"unsupported image format; the port reads {READS}")
 
 
@@ -100,7 +103,7 @@ def image_size(path):
     """(width, height) of any format of :data:`READS` (from its headers,
     without decoding pixels, as PIL's ``.size``: a JPEG's EXIF orientation
     is not applied, a TIFF's ``Orientation`` is, a GIF's screen grows to
-    hold its first frame) or of a ``.npy`` image."""
+    hold its first frame, a WebP's is its canvas) or of a ``.npy`` image."""
     path = os.fspath(path)
     if path.endswith(".npy"):
         h, w = np.load(path, mmap_mode="r", allow_pickle=False).shape[:2]
@@ -121,6 +124,8 @@ def image_size(path):
             return gif.gif_size(head + f.read())
         if head.startswith(sunras.SIGNATURE):
             return sunras.sunras_size(head)
+        if webp.is_webp(head):
+            return webp.webp_size(head + f.read())
     raise ValueError(f"{path}: unsupported image format; the port reads {READS}")
 
 

@@ -363,25 +363,56 @@ def exif_orientation(data: bytes) -> int:
     return 1
 
 
+# OpenCV's ExifReader parses these IFD0 tags before it looks for the
+# orientation; a value they point past the data at ends the parse
+_EXIF_STRINGS = (0x010E, 0x010F, 0x0110, 0x0131, 0x0132, 0x8298)
+_EXIF_RATIONALS = {0x011A: 1, 0x011B: 1, 0x013E: 2, 0x013F: 6, 0x0211: 3, 0x0214: 6}
+_EXIF_SHORTS = (0x0112, 0x0128, 0x0213)
+
+
 def _tiff_orientation(tiff: bytes) -> int:
-    if tiff[:2] == b"II":
-        end = "<"
-    elif tiff[:2] == b"MM":
-        end = ">"
-    else:
-        return 1
+    """OpenCV's ``ExifReader`` on a TIFF header and IFD0: little-endian only
+    after ``II`` (anything else reads big-endian), the mark 42, then each
+    entry in turn, a read past the data ending the parse; the first entry
+    with tag 0x0112 gives the 16 bits at its value field, whatever its
+    type. 1 where there is none or it is out of 1-8."""
+    end = "<" if tiff[:2] == b"II" else ">"
+    n = len(tiff)
+
+    def u16(o):
+        if o + 1 >= n:
+            raise IndexError
+        return struct.unpack_from(end + "H", tiff, o)[0]
+
+    def u32(o):
+        if o + 3 >= n:
+            raise IndexError
+        return struct.unpack_from(end + "I", tiff, o)[0]
+
+    orientation = None
     try:
-        (ifd,) = struct.unpack(end + "I", tiff[4:8])
-        (count,) = struct.unpack(end + "H", tiff[ifd:ifd + 2])
-        for i in range(count):
-            entry = tiff[ifd + 2 + 12 * i:ifd + 14 + 12 * i]
-            tag, kind, n = struct.unpack(end + "HHI", entry[:8])
-            if tag == 0x0112 and kind == 3:  # SHORT
-                (value,) = struct.unpack(end + "H", entry[8:10])
-                return value if 1 <= value <= 8 else 1
-    except struct.error:
-        return 1
-    return 1
+        if u16(2) != 0x2A:
+            return 1
+        ifd = u32(4)
+        for i in range(u16(ifd)):
+            entry = ifd + 2 + 12 * i
+            tag = u16(entry)
+            if tag in _EXIF_STRINGS:
+                size = u32(entry + 4)
+                at = u32(entry + 8) if size > 4 else 8
+                if at + size > n:
+                    raise IndexError
+            elif tag in _EXIF_RATIONALS:
+                at = u32(entry + 8)
+                for k in range(2 * _EXIF_RATIONALS[tag]):
+                    u32(at + 4 * k)
+            elif tag in _EXIF_SHORTS:
+                value = u16(entry + 8)
+                if tag == 0x0112 and orientation is None:
+                    orientation = value
+    except IndexError:
+        pass
+    return orientation if orientation is not None and 1 <= orientation <= 8 else 1
 
 
 def _quant_tables(body: bytes, tables: Dict[int, np.ndarray]) -> None:

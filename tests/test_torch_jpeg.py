@@ -973,8 +973,9 @@ def test_bmp_cases_that_raise():
 def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
     """read_image_bgr decodes by content whatever the extension (a PNG
     named .jpg, a JPEG named .png), as PIL does; image_size reads each
-    format's header as PIL's .size; a TIFF page and a GIF page read;
-    formats the port does not read yet (WebP) raise, naming what it reads."""
+    format's header as PIL's .size; TIFF, GIF and WebP pages read;
+    formats the port does not read yet (JPEG 2000) raise, naming what it
+    reads."""
     img = _image((21, 34), 11)
     files = {"png.jpg": None, "jpeg.png": _pil_jpeg(img, quality=85),
              "bmp.dat": _pil_bmp(img, "RGB")}
@@ -986,10 +987,14 @@ def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
         got = read_image_bgr(tmp_path / name)
         assert got.dtype == np.float32 and np.array_equal(got, want), name
         assert image_size(tmp_path / name) == Image.open(tmp_path / name).size == (34, 21)
-    Image.fromarray(img).save(tmp_path / "page.webp")
+    Image.fromarray(img).save(tmp_path / "page.jp2")
     for fn in (read_image_bgr, image_size):
-        with pytest.raises(ValueError, match="JPEG"):
-            fn(tmp_path / "page.webp")
+        with pytest.raises(ValueError, match="WebP"):
+            fn(tmp_path / "page.jp2")
+    Image.fromarray(img).save(tmp_path / "page.webp")  # WebP: data/webp.py
+    want = np.asarray(Image.open(tmp_path / "page.webp").convert("RGB"))[:, :, ::-1]
+    np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.webp"), want)
+    assert image_size(tmp_path / "page.webp") == (34, 21)
     Image.fromarray(img).save(tmp_path / "page.gif")  # GIF: data/gif.py
     want = np.asarray(Image.open(tmp_path / "page.gif").convert("RGB"))[:, :, ::-1]
     np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.gif"), want)
@@ -1004,8 +1009,9 @@ def test_no_fallback_decoder(tmp_path):
     """With PIL, cv2, jax and tdnet poisoned in sys.modules, read_image_bgr
     still decodes a JPEG (sequential, progressive, arithmetic-coded and
     lossless), a BMP (raw and RLE8), TIFF pages (LZW with a predictor,
-    CCITT G4, JPEG, YCbCr), a PPM, a GIF and a byte-encoded Sun raster,
-    to the pixels PIL gives here."""
+    CCITT G4, JPEG, YCbCr), a PPM, a GIF, a byte-encoded Sun raster and
+    WebP pages (lossy, lossless, lossy with alpha), to the pixels PIL gives
+    here."""
     img = _image((30, 41), 12)
     page = Image.fromarray(img)
     rle = bytes([3, 1, 3, 2, 0, 0, 2, 3, 4, 0, 0, 0, 6, 1, 0, 0, 0, 1])
@@ -1026,6 +1032,13 @@ def test_no_fallback_decoder(tmp_path):
     for name, fmt in (("p.ppm", "PPM"), ("g.gif", "GIF")):
         buf = io.BytesIO()
         page.save(buf, fmt)
+        files[name] = buf.getvalue()
+    for name, im, kw in (("y.webp", page, dict(quality=80)), ("l.webp", page, dict(lossless=True)),
+                         ("a.webp", page.convert("RGBA"), dict(quality=70))):
+        if name == "a.webp":
+            im.putalpha(Image.fromarray(img[..., 0]))
+        buf = io.BytesIO()
+        im.save(buf, "WEBP", **kw)
         files[name] = buf.getvalue()
     files["ar.jpg"] = transcode(files["a.jpg"], progressive=True)
     files["ll.jpg"] = _lossless(img, 5, rgb=True)

@@ -188,7 +188,9 @@ def test_predictor_over_the_pages_matches_reference(csv_pages):
 
 # the golden pages whose decode in Python takes a second or more a route:
 # chip_smoke.py's pages phase checks them at full size
-SLOW_PAGES = ("arith_seq.jpg", "arith_prog.jpg", "arith_big.jpg", "lossless.jpg")
+SLOW_PAGES = ("arith_seq.jpg", "arith_prog.jpg", "arith_big.jpg", "lossless.jpg",
+              "vp8l_rgb.webp", "vp8_q80.webp", "vp8x_alpha.webp", "vp8x_exif6.webp",
+              "vp8_simple4.webp")
 
 
 def test_golden_pages_equal_their_digests():
@@ -196,12 +198,13 @@ def test_golden_pages_equal_their_digests():
     by both routes to the SHA-256 the references gave (the CMYK page's
     routes apart), a route the reference refuses raises (the RLE Sun
     raster on cv2's), and their sizes read from the headers. The file
-    lists all sixteen pages; this test decodes the cheap ones, the eight
-    of earlier slices and ycc_lzw.tif, page.pbm, page.gif and rle.ras,
-    and leaves the arithmetic-coded and lossless JPEGs (SLOW_PAGES) to
-    the card's pages phase, which decodes them all."""
+    lists all 22 pages; this test decodes the cheap ones, the eight of
+    earlier slices, ycc_lzw.tif, page.pbm, page.gif, rle.ras and
+    vp8l_palette.webp, and leaves the arithmetic-coded and lossless JPEGs
+    and the other WebP pages (SLOW_PAGES) to the card's pages phase, which
+    decodes them all."""
     digests = json.loads((GOLDEN / "digests.json").read_text())
-    assert len(digests) == 16
+    assert len(digests) == 22
     for name, info in digests.items():
         assert list(port_image.image_size(GOLDEN / name)) == info["size"]
         if name in SLOW_PAGES:

@@ -35,7 +35,22 @@ pages come from tools/make_jpeg_pages.py's ``table_page`` with seed 8:
   half size (550x425, boxes halved), by tools/jpeg_lossless.py;
 - ``rle.ras``: 8-bit Sun raster, byte-encoded (type 2), the page's colours
   as its colormap (an encoder of this tool's own): PIL reads it, cv2
-  refuses the type.
+  refuses the type;
+
+and six WebP pages drawn from a generator of their own (seed 9), so that
+the pages above keep their bytes:
+
+- ``vp8l_palette.webp``: Pillow's default lossless (``VP8L``: a palette of
+  the page's colours, bundled);
+- ``vp8l_rgb.webp``: the page after a JPEG at quality 75 (thousands of
+  colours), saved lossless;
+- ``vp8_q80.webp``: Pillow's default lossy (``VP8 ``, quality 80);
+- ``vp8x_alpha.webp``: RGBA, lossy with an ``ALPH`` chunk (an alpha
+  that fades and a transparent top margin; RGB drops it);
+- ``vp8x_exif6.webp``: lossy with an EXIF Orientation of 6: cv2 turns the
+  page, PIL does not, so the routes part;
+- ``vp8_simple4.webp``: lossy, rewritten by tools/webp_rewrite.py to the
+  simple loop filter in 4 token partitions.
 
 Where a reference refuses a page, ``digests.json`` holds null for its
 digest and the reason under ``refused`` (PIL's exception, or cv2's None).
@@ -59,10 +74,12 @@ sys.path.insert(0, os.path.dirname(__file__))
 from jpeg_arith import transcode  # noqa: E402
 from jpeg_lossless import encode as lossless_jpeg  # noqa: E402
 from make_jpeg_pages import LANDSCAPE, table_page  # noqa: E402
+from webp_rewrite import rewrite as webp_rewrite  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "golden", "pages")
 SEED = 8  # the first seed whose pages table_page draws without an empty range
 N_PAGES = 16
+WEBP_SEED = 9  # the WebP pages' own generator: the pages above keep theirs
 
 
 def pil_bytes(im: Image.Image, fmt: str, **kw) -> bytes:
@@ -137,6 +154,32 @@ def rle_ras(rgb) -> bytes:
     return struct.pack(">8I", 0x59A66A95, w, h, 8, len(out), 2, 1, len(cmap)) + cmap + bytes(out)
 
 
+def webp_pages(pages) -> dict:
+    """The six WebP pages, drawn from their own generator and appended to
+    ``pages`` (page, boxes) in the order of the files returned."""
+    rng = np.random.default_rng(WEBP_SEED)
+    drawn = [table_page(rng, LANDSCAPE) for _ in range(6)]
+    pages += drawn
+    page = [Image.fromarray(p) for p, _ in drawn]
+    jpeg75 = Image.open(io.BytesIO(pil_bytes(page[1], "JPEG", quality=75))).convert("RGB")
+    h, w = LANDSCAPE
+    yy, xx = np.mgrid[:h, :w]
+    alpha = np.clip(255 - np.hypot(yy - h / 2, xx - w / 2) / 3, 64, 255).astype(np.uint8)
+    alpha[:40] = 0
+    rgba = page[3].convert("RGBA")
+    rgba.putalpha(Image.fromarray(alpha))
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    return {
+        "vp8l_palette.webp": pil_bytes(page[0], "WEBP", lossless=True),
+        "vp8l_rgb.webp": pil_bytes(jpeg75, "WEBP", lossless=True),
+        "vp8_q80.webp": pil_bytes(page[2], "WEBP"),
+        "vp8x_alpha.webp": pil_bytes(rgba, "WEBP"),
+        "vp8x_exif6.webp": pil_bytes(page[4], "WEBP", exif=exif),
+        "vp8_simple4.webp": webp_rewrite(pil_bytes(page[5], "WEBP"), simple=1, partitions=4),
+    }
+
+
 def reference_decodes(data: bytes):
     """(PIL's RGB decode or None, cv2's BGR decode or None, the refusals)."""
     refused = {}
@@ -181,6 +224,7 @@ def main():
         "lossless.jpg": lossless_jpeg(pages[14][0], 7, rgb=True),
         "rle.ras": rle_ras(pages[15][0]),
     }
+    files.update(webp_pages(pages))
     digests = {}
     for (name, data), (_, boxes) in zip(files.items(), pages):
         with open(os.path.join(OUT, name), "wb") as f:
