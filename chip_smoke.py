@@ -2541,7 +2541,7 @@ def phase_serve(dev):
     require(launches["stem"] >= 1 and launches["nms"] >= 1, f"serve launches {launches}")
     from tdnet_torch.data import png
 
-    require(all(np.array_equal(png.decode_png(b[1][0])[:, :, ::-1], p)
+    require(all(np.array_equal(png.decode_png(b[1][0], route="cv2")[:, :, ::-1], p)
                 for b, p in zip(bodies, pages)), "a PNG body decodes to other pixels")
     n_det = sum(len(a[1]["detections"]) for a in answers)
     require(n_det > 0, "no detections served")
@@ -3199,13 +3199,19 @@ def phase_pages(dev):
     and 4:1:1 JPEG, an RLE8 BMP, CCITT G4, LZW-with-predictor,
     JPEG-compressed and YCbCr LZW TIFF, a P4 PBM, a GIF, sequential and
     progressive arithmetic-coded JPEG, lossless JPEG, a byte-encoded Sun
-    raster, and WebP: lossless with a palette and with thousands of
-    colours, lossy, lossy with alpha, lossy with EXIF orientation 6 (the
-    routes part: cv2 turns it), lossy with the simple filter in 4
-    partitions) decoded by both routes, each SHA-256 equal to the
-    references' in ``digests.json``, each route a reference refuses
-    raising (PIL's on the arithmetic page past its first 64 KiB, cv2's on
-    the Sun raster), and ``image_size`` equal to PIL's size; a CSV of the pages
+    raster, WebP: lossless with a palette and with thousands of colours,
+    lossy, lossy with alpha, lossy with EXIF orientation 6 (the routes
+    part: cv2 turns it), lossy with the simple filter in 4 partitions; an
+    APNG whose IDAT image is not a frame (the routes part: cv2 reads the
+    first frame), a PNG with EXIF orientation 6 (cv2 turns it), a CIE
+    L*a*b* TIFF (LittleCMS on the file route, libtiff on the body route),
+    a 12-bit JPEG, a gray PFM and a Radiance HDR page) decoded by both
+    routes, each SHA-256 equal to the references' in ``digests.json``,
+    each route a reference refuses raising (PIL's on the arithmetic page
+    past its first 64 KiB, the 12-bit JPEG and the HDR page; cv2's on the
+    Sun raster, the 12-bit JPEG and the gray PFM, which it returns as one
+    channel), and ``image_size`` equal to PIL's size, raising where PIL
+    cannot open the file; a CSV of the pages
     the file route reads -> ``train csv`` (bf16, batch 2, 2 steps, the
     fused stem and its backward kernel); ``predict`` on those files (each
     page's detections a direct predictor's on the file route's decode);
@@ -3257,6 +3263,13 @@ def phase_pages(dev):
             want = info["pil_rgb_sha256" if route == "pil" else "cv2_bgr_sha256"]
             require(_sha256(decoded[name]) == want, f"{name}: {route} route differs from "
                     f"{'PIL' if route == 'pil' else 'cv2.imdecode'}")
+        if info["size"] is None:  # PIL cannot open the file, and image_size raises
+            try:
+                size = image_size(path)
+            except ValueError:
+                size = None
+            require(size is None, f"{name}: image_size {size}, where PIL cannot open the file")
+            continue
         shape = (file_rgb.get(name) if name in file_rgb else body_bgr[name]).shape
         require(image_size(path) == tuple(info["size"]) == (shape[1], shape[0]),
                 f"{name}: image_size {image_size(path)}, PIL {info['size']}")
@@ -3322,7 +3335,8 @@ def phase_pages(dev):
     # 4. serve: every file as a body, one at a time
     ctypes = {".jpg": "image/jpeg", ".bmp": "image/bmp", ".tif": "image/tiff",
               ".pbm": "image/x-portable-bitmap", ".gif": "image/gif",
-              ".ras": "image/x-sun-raster", ".webp": "image/webp"}
+              ".ras": "image/x-sun-raster", ".webp": "image/webp", ".png": "image/png",
+              ".pfm": "image/x-portable-floatmap", ".hdr": "image/vnd.radiance"}
     direct = predictor(thr)
     base, httpd, batcher = _serve(predictor(thr), max_batch=4,
                                   max_delay_ms=SERVE_MAX_DELAY_MS, default_threshold=thr)

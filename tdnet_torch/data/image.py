@@ -1,12 +1,14 @@
 """Host-side image reading and preprocessing in numpy, the counterpart of
 ``tdnet/data/image.py``.
 
-:func:`read_image_bgr` decodes PNG, JPEG, BMP, TIFF, PNM, GIF, Sun raster
-and WebP pages with the port's own decoders (``data/png.py``, ``jpeg.py``,
-``bmp.py``, ``tiff.py``, ``pnm.py``, ``gif.py``, ``sunras.py``,
-``webp.py`` with ``vp8.py`` and ``vp8l.py``: zlib and numpy), byte for
-byte as the reference's PIL ``convert("RGB")`` does, and reads ``.npy``
-arrays. The format is sniffed from the content, as PIL does,
+:func:`read_image_bgr` decodes PNG (APNG too), JPEG, BMP, TIFF, PNM (PFM
+too), GIF, Sun raster and WebP pages with the port's own decoders
+(``data/png.py``, ``jpeg.py``, ``bmp.py``, ``tiff.py`` with
+``cielab.py``, ``pnm.py``, ``gif.py``, ``sunras.py``, ``webp.py`` with
+``vp8.py`` and ``vp8l.py``: zlib and numpy), byte for byte as the
+reference's PIL ``convert("RGB")`` does, and reads ``.npy`` arrays;
+:func:`decode_image` also reads Radiance HDR (``hdr.py``) on the serve
+route, as ``cv2.imdecode`` does. The format is sniffed from the content, as PIL does,
 not taken from the file's extension.
 
 The GPU machine has neither cv2 nor PIL, so :func:`resize_image` is a numpy
@@ -26,7 +28,7 @@ from typing import Tuple
 
 import numpy as np
 
-from tdnet_torch.data import bmp, gif, jpeg, png, pnm, sunras, tiff, webp
+from tdnet_torch.data import bmp, gif, hdr, jpeg, png, pnm, sunras, tiff, webp
 
 __all__ = [
     "CAFFE_MEAN_BGR",
@@ -44,18 +46,19 @@ __all__ = [
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], dtype=np.float32)
 
 
-READS = "; ".join(m.READS for m in (png, jpeg, bmp, tiff, pnm, gif, sunras, webp))
+READS = "; ".join(m.READS for m in (png, jpeg, bmp, tiff, pnm, gif, sunras, webp, hdr))
 
 
 def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
-    """PNG, JPEG, BMP, TIFF, PNM, GIF, Sun raster or WebP bytes, told apart
-    by their first bytes -> (H, W, 3) uint8 RGB by the rule of ``route``:
-    ``"pil"`` (files: PIL's ``convert("RGB")``) or ``"cv2"`` (serve bodies:
-    ``cv2.imdecode(..., IMREAD_COLOR)``, which turns a JPEG or WebP by its
-    EXIF orientation; both turn a TIFF by its ``Orientation``). A file that
-    the route's reference refuses raises, naming the case."""
+    """PNG, JPEG, BMP, TIFF, PNM, GIF, Sun raster, WebP or Radiance HDR
+    bytes, told apart by their first bytes -> (H, W, 3) uint8 RGB by the
+    rule of ``route``: ``"pil"`` (files: PIL's ``convert("RGB")``) or
+    ``"cv2"`` (serve bodies: ``cv2.imdecode(..., IMREAD_COLOR)``, which
+    turns a JPEG, PNG or WebP by its EXIF orientation; both turn a TIFF by
+    its ``Orientation``). A file that the route's reference refuses raises,
+    naming the case."""
     if data.startswith(png.SIGNATURE):
-        return png.decode_png(data, sixteen_bit=route)
+        return png.decode_png(data, route=route)
     if data.startswith(jpeg.SIGNATURE):
         return jpeg.decode_jpeg(data, route=route)
     if data.startswith(bmp.SIGNATURE):
@@ -70,6 +73,8 @@ def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
         return sunras.decode_sunras(data, route=route)
     if webp.is_webp(data) or (route == "cv2" and webp.is_bare_bitstream(data)):
         return webp.decode_webp(data, route=route)
+    if hdr.is_hdr(data):
+        return hdr.decode_hdr(data, route=route)
     raise ValueError(f"unsupported image format; the port reads {READS}")
 
 
@@ -111,7 +116,7 @@ def image_size(path):
     with open(path, "rb") as f:
         head = f.read(64)
         if head.startswith(png.SIGNATURE):
-            return png.png_size(head)
+            return png.png_size(head + f.read())
         if head.startswith(bmp.SIGNATURE):
             return bmp.bmp_size(head)
         if head.startswith(jpeg.SIGNATURE):
@@ -126,6 +131,8 @@ def image_size(path):
             return sunras.sunras_size(head)
         if webp.is_webp(head):
             return webp.webp_size(head + f.read())
+        if hdr.is_hdr(head):
+            raise ValueError(f"{path}: Radiance HDR: PIL cannot identify it")
     raise ValueError(f"{path}: unsupported image format; the port reads {READS}")
 
 

@@ -16,10 +16,15 @@ sampling factors libjpeg accepts (1 to 4; each component's factors must
 divide the largest), interleaved or not, 8- or 16-bit quantisation tables,
 restart intervals, and the Annex K Huffman tables where a file defines
 none (Motion JPEG); and lossless frames (SOF3: predictors 1 to 7, a point
-transform, sampling 1x1), which libjpeg-turbo 3 decodes without colour
-conversion: gray, RGB or CMYK, never YCbCr. Hierarchical frames, lossless
-arithmetic coding (SOF11), 12-bit samples and DNL raise, as does a file
-that ends before its EOI marker (both reference routes fail on each).
+transform, any sampling factors, each component upsampled by replication,
+as libjpeg-turbo does without a DCT), which libjpeg-turbo 3 decodes
+without colour conversion: gray, RGB or CMYK, never YCbCr (three
+components without a JFIF or Adobe marker are RGB, whatever their ids).
+Lossless frames of 2 to 7 bits come out of libjpeg-turbo unscaled: cv2
+reads them so, PIL cannot handle the layers. Hierarchical frames, lossless
+arithmetic coding (SOF11), lossy frames of other than 8 bits, lossless
+ones past 8 bits and DNL raise, as does a file that ends before its EOI
+marker (both reference routes fail on each).
 
 Arithmetic decoding is ``jdarith.c``: the Qe state machine of T.81 Table
 D.2, the DC and AC statistics bins with their conditioning, a Python loop
@@ -78,8 +83,8 @@ __all__ = ["SIGNATURE", "READS", "ROUTES", "decode_jpeg", "jpeg_size",
 
 SIGNATURE = b"\xff\xd8\xff"
 READS = ("baseline, extended sequential and progressive JPEG, Huffman or arithmetic, "
-         "and lossless JPEG (8-bit; gray, YCbCr, RGB, CMYK or YCCK; sampling factors up "
-         "to 4)")
+         "and lossless JPEG (8-bit, and 2- to 7-bit lossless by the cv2 route; gray, "
+         "YCbCr, RGB, CMYK or YCCK; sampling factors up to 4)")
 ROUTES = ("pil", "cv2")
 
 # the next marker: fill bytes (0xFF) before it, its code not 0x00 (a
@@ -232,6 +237,7 @@ class _Frame:
         self.width, self.height, self.comps = width, height, comps
         self.progressive, self.arithmetic, self.lossless = progressive, arithmetic, lossless
         self.read_end = 0  # arithmetic: the furthest file offset its decoder read
+        self.precision = 8
         self.max_h = max(c.h for c in comps)
         self.max_v = max(c.v for c in comps)
         self.mcus_x = -(-width // (8 * self.max_h))
@@ -308,8 +314,9 @@ def _parse_frame(body: bytes, progressive: bool = False, arithmetic: bool = Fals
     if len(body) < 6:
         raise ValueError("bad JPEG frame header")
     precision, height, width, n = struct.unpack(">BHHB", body[:6])
-    if precision != 8:
-        raise ValueError(f"{precision}-bit JPEG is not read; this reader takes 8-bit samples")
+    if precision != 8 and not (lossless and 2 <= precision < 8):
+        raise ValueError(f"{precision}-bit JPEG: both references refuse it (PIL cannot handle "
+                         "its layers, and cv2 reads 8-bit samples only)")
     if height == 0:
         raise ValueError("JPEG with a DNL marker (height 0 in its frame) is not read")
     if width == 0:
@@ -326,11 +333,11 @@ def _parse_frame(body: bytes, progressive: bool = False, arithmetic: bool = Fals
             raise ValueError(f"bad JPEG quantisation table id {tq}")
         comps.append(_Component(cid, h, v, tq))
     frame = _Frame(width, height, comps, progressive, arithmetic, lossless)
-    if lossless:
-        if any(c.h != 1 or c.v != 1 for c in comps):
-            raise ValueError("lossless JPEG with sampling factors other than 1 is not read")
+    frame.precision = precision
+    if lossless:  # each component's own samples (jdinput.c's width_in_blocks)
         for c in comps:
-            c.samples = np.zeros((height, width), np.uint8)
+            c.samples = np.zeros((-(-height * c.v // frame.max_v), -(-width * c.h // frame.max_h)),
+                                 np.uint8)
     for c in comps:
         if frame.max_h % c.h or frame.max_v % c.v:
             raise ValueError(f"JPEG sampling factors {c.h}x{c.v} against {frame.max_h}x"
@@ -341,10 +348,13 @@ def _parse_frame(body: bytes, progressive: bool = False, arithmetic: bool = Fals
 
 def jpeg_size(data: bytes) -> Tuple[int, int]:
     """(width, height) from the frame header of any JPEG process, as PIL's
-    ``.size`` (EXIF orientation is not applied)."""
+    ``.size`` (EXIF orientation is not applied; PIL opens 8-bit frames
+    only)."""
     for marker, body in _header(data, stop_at_frame=True):
         if (marker in _SOF_READ or marker in _SOF_UNSUPPORTED) and len(body) >= 5:
             precision, height, width = struct.unpack(">BHH", body[:5])
+            if precision != 8:
+                raise ValueError(f"{precision}-bit JPEG: PIL cannot handle its layers")
             return width, height
         if marker in (0xD9, 0xDA):
             break
@@ -1186,15 +1196,20 @@ def _undifference(d: np.ndarray, predictor: int, initial: int) -> np.ndarray:
 
 
 def _lossless_scan(reader: _Reader, body: bytes, frame: _Frame, huff, restart: int) -> None:
-    """One lossless scan: predictor Ss (1 to 7), point transform Al, the
-    samples of each of its components (sampling 1x1: an MCU is one sample
-    of each) decoded, undifferenced and shifted left by Al to 8 bits."""
+    """One lossless scan: predictor Ss (1 to 7), point transform Al. An
+    MCU of a scan of one component is one sample; of an interleaved scan,
+    each component's h x v samples in raster order, the MCUs covering
+    ``ceil(W / hmax)`` by ``ceil(H / vmax)`` blocks (what reaches past a
+    component's samples is decoded and dropped). Each component's samples
+    are undifferenced on its own grid (the first sample row of the scan
+    and of each restart interval from the left), then shifted left by Al
+    to 8 bits."""
     if len(body) < 1 or len(body) < 1 + 2 * body[0] + 3:
         raise ValueError("bad JPEG scan header")
     ns = body[0]
     predictor, se, a = body[1 + 2 * ns:4 + 2 * ns]
     ah, al = a >> 4, a & 15
-    if not 1 <= predictor <= 7 or se != 0 or ah != 0 or al >= 8:
+    if not 1 <= predictor <= 7 or se != 0 or ah != 0 or al >= frame.precision:
         raise ValueError(f"bad lossless JPEG scan: predictor {predictor}, Se {se}, Ah {ah}, "
                          f"Al {al}")
     by_id = {c.id: c for c in frame.comps}
@@ -1210,19 +1225,33 @@ def _lossless_scan(reader: _Reader, body: bytes, frame: _Frame, huff, restart: i
         tables.append(_huffman(*raw, True, True))
     for c in comps:
         c.quant = np.ones(64, np.int64)  # sent: no quantisation in lossless mode
-    width, height = frame.width, frame.height
-    if restart and restart % width:
+    if ns == 1:
+        blocks = [(1, 1)]
+        mcux, mcuy = comps[0].samples.shape[1], comps[0].samples.shape[0]
+    else:
+        blocks = [(c.h, c.v) for c in comps]
+        mcux, mcuy = -(-frame.width // frame.max_h), -(-frame.height // frame.max_v)
+    if restart and restart % mcux:
         raise ValueError(f"lossless JPEG restart interval {restart} not a whole number of "
-                         f"its {width}-MCU rows: libjpeg-turbo refuses it")
-    step = restart // width if restart else height
+                         f"its {mcux}-MCU rows: libjpeg-turbo refuses it")
+    step = restart // mcux if restart else mcuy
+    unit_tables = [t for t, (h, v) in zip(tables, blocks) for _ in range(h * v)]
+    per_mcu = len(unit_tables)
     segments = _scan_segments(reader)
-    initial = 1 << (8 - al - 1)
-    for first, segment in zip(range(0, height, step), segments):
-        rows = min(step, height - first)
-        d = _lossless_diffs(segment, tables, rows * width * ns).reshape(rows, width, ns)
-        for i, c in enumerate(comps):
-            x = _undifference(d[:, :, i], predictor, initial)
-            c.samples[first:first + rows] = (x << al) & 0xFF
+    initial = 1 << (frame.precision - al - 1)
+    for first, segment in zip(range(0, mcuy, step), segments):
+        rows = min(step, mcuy - first)
+        d = _lossless_diffs(segment, unit_tables, rows * mcux * per_mcu).reshape(rows, mcux,
+                                                                               per_mcu)
+        at = 0
+        for c, (h, v) in zip(comps, blocks):
+            block = d[:, :, at:at + h * v].reshape(rows, mcux, v, h)
+            at += h * v
+            x = _undifference(block.transpose(0, 2, 1, 3).reshape(rows * v, mcux * h),
+                              predictor, initial)
+            top = first * v
+            part = c.samples[top:top + rows * v]
+            part[:] = ((x << al) & 0xFF)[:part.shape[0], :part.shape[1]]
 
 
 # jidctint.c constants (CONST_BITS 13)
@@ -1480,6 +1509,8 @@ def _colour_space(frame: _Frame, jfif: bool, adobe: Optional[int]) -> str:
         return "ycc"
     if adobe is not None:
         return "rgb" if adobe == 0 else "ycc"
+    if frame.lossless:  # libjpeg-turbo 3 takes a lossless frame without markers for RGB
+        return "rgb"
     return "rgb" if tuple(c.id for c in frame.comps) == (82, 71, 66) else "ycc"
 
 
@@ -1590,7 +1621,11 @@ def _decode(data: bytes):
         if space in ("ycc", "ycck"):
             raise ValueError(f"lossless {space.upper()} JPEG: libjpeg-turbo converts no colour "
                              "in lossless mode, and both routes refuse it")
-        return frame, [c.samples for c in frame.comps], space
+        # libjpeg upsamples lossless components by replication (no fancy
+        # upsampling without a DCT)
+        planes = [np.repeat(np.repeat(c.samples, frame.max_v // c.v, 0), frame.max_h // c.h,
+                            1)[:frame.height, :frame.width] for c in frame.comps]
+        return frame, planes, space
     smooth = _smoothing(frame)
     planes = [_upsample(_component_plane(frame, c, smooth), c, frame) for c in frame.comps]
     return frame, planes, _colour_space(frame, jfif, adobe)
@@ -1617,6 +1652,9 @@ def decode_jpeg(data: bytes, route: str = "pil") -> np.ndarray:
         raise ValueError(f"arithmetic-coded JPEG read to byte {frame.read_end}: PIL feeds "
                          f"libjpeg {PIL_BLOCK} bytes first, and its arithmetic decoder cannot "
                          "wait for more (PIL: broken data stream)")
+    if frame.lossless and frame.precision != 8 and route == "pil":
+        raise ValueError(f"{frame.precision}-bit lossless JPEG: PIL cannot handle its layers "
+                         "(cv2 reads the samples as they are)")
     if frame.lossless and space == "gray" and route == "cv2":
         raise ValueError("lossless gray JPEG: cv2 asks libjpeg-turbo for BGR, which it does "
                          "not convert to in lossless mode")

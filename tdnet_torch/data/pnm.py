@@ -6,7 +6,9 @@ OpenCV's ``grfmt_pxm.cpp`` and ``grfmt_pam.cpp``).
 
 Reads P1 to P6 (bitmap, graymap and pixmap, ASCII and binary), maxval 1
 to 65535 at one or two bytes a sample, with comments wherever each
-route's header parser takes them, and P7 (PAM) on the cv2 route. Each
+route's header parser takes them, P7 (PAM) on the cv2 route, PFM (``Pf``
+gray on the pil route, ``PF`` colour on the cv2 route) and PIL's own
+``P0CMYK``, ``PyP``, ``PyRGBA`` and ``PyCMYK`` on the pil route. Each
 route parses the header by its own rules and scales samples by its own:
 
 - PIL scales by maxval: ``round(v / maxval * 255)`` (Python's rounding,
@@ -30,6 +32,15 @@ route parses the header by its own rules and scales samples by its own:
   converts only the first ``width / depth`` pixels of each row and leaves
   the rest of its output as the memory held it.
 
+- PFM: PIL identifies ``Pf`` only (``PF`` it cannot): a scale that is
+  finite and not 0 (its sign the byte order), float rows bottom-up, then
+  F -> L -> RGB, each value cut toward zero into 0..255 (NaN 0). cv2 reads
+  both as :func:`_cv2_pfm` sets out, and returns ``Pf`` as one channel,
+  which this route refuses.
+- PIL's own magics (cv2 reads none): binary samples, scaled by maxval
+  where it is not 255; CMYK through PIL's ``cmyk2rgb``, RGBA without its
+  alpha, ``PyP`` black (its index image has no palette).
+
 A file that ends before its samples do raises on both routes, as both
 references fail on one.
 """
@@ -43,13 +54,21 @@ import numpy as np
 
 __all__ = ["SIGNATURES", "READS", "ROUTES", "decode_pnm", "pnm_size"]
 
-SIGNATURES = tuple(b"P%d" % i for i in range(1, 8))
-READS = ("PNM (P1-P6, ASCII and binary, maxval up to 65535; PAM (P7) by the cv2 route)")
+SIGNATURES = tuple(b"P%d" % i for i in range(1, 8)) + (b"Pf", b"PF", b"P0", b"Py")
+READS = ("PNM (P1-P6, ASCII and binary, maxval up to 65535; PAM (P7) by the cv2 route; "
+         "PFM (Pf by both routes, PF by the cv2 route); PIL's P0CMYK, PyP, PyRGBA and "
+         "PyCMYK by the pil route)")
 ROUTES = ("pil", "cv2")
 
 _WS = b" \t\n\x0b\x0c\r"
 _INT_MAX = 2 ** 31 - 1
 _BANDS = {b"P1": 1, b"P2": 1, b"P3": 3, b"P4": 1, b"P5": 1, b"P6": 3}
+# PIL's own magics: the samples a pixel of each, binary only
+_PIL_EXTENSIONS = {b"P0CMYK": 4, b"PyCMYK": 4, b"PyRGBA": 4, b"PyP": 1}
+_FLOAT_RE = re.compile(rb"[+-]?(?:(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?|inf(?:inity)?|nan)",
+                       re.IGNORECASE)
+_INT_RE = re.compile(rb"[+-]?\d+")
+_CV2_MAX_SIDE, _CV2_MAX_PIXELS = 1 << 20, 1 << 30
 _PIL_COMMENT = re.compile(rb"#[^\r\n]*[\r\n]?")
 # cv2's ReadNumber: whitespace and comments (to the end of their line),
 # then digits; one byte after them is consumed
@@ -101,20 +120,23 @@ def _pil_header(data: bytes):
         magic += c
     if magic == b"P7":
         raise ValueError("PAM (P7): PIL cannot identify it, so the pil route does not read it")
-    if magic not in _BANDS:
-        raise ValueError(f"PNM magic {magic!r} is not read")
+    if magic not in _BANDS and magic not in _PIL_EXTENSIONS and magic != b"Pf":
+        raise ValueError(f"PNM magic {magic!r} is not read by PIL")
     numbers = []
     for _ in range(2 if magic in (b"P1", b"P4") else 3):
         token, pos = _pil_token(data, pos)
         try:
-            numbers.append(int(token))
+            numbers.append(float(token) if magic == b"Pf" and len(numbers) == 2 else int(token))
         except ValueError:
             raise ValueError(f"PNM header token {token!r} is not a number") from None
     width, height = numbers[:2]
     if width <= 0 or height <= 0:
         raise ValueError(f"bad PNM size {width}x{height}: PIL does not identify the file")
     maxval = numbers[2] if len(numbers) == 3 else 1
-    if not 0 < maxval < 65536:
+    if magic == b"Pf":
+        if maxval == 0 or not np.isfinite(maxval):
+            raise ValueError(f"PFM scale {maxval}: PIL wants it finite and non-zero")
+    elif not 0 < maxval < 65536:
         raise ValueError(f"PNM maxval {maxval}: PIL takes 1 to 65535")
     return magic, width, height, maxval, pos
 
@@ -138,8 +160,48 @@ def _pil_ascii(body: bytes, n: int, maxval: int, top: int) -> np.ndarray:
     return np.round(values / maxval * top).astype(np.int64)
 
 
+def _pil_float(body: bytes, w: int, h: int, scale: float) -> np.ndarray:
+    """PIL's ``Pf``: mode F, float32 rows bottom-up (little-endian where the
+    scale is negative, whose size is ignored), then F -> L ->
+    RGB: each value cut toward zero and clipped to 0..255, NaN 0."""
+    if len(body) < 4 * w * h:
+        raise ValueError("PFM data ends early: image file is truncated")
+    values = np.frombuffer(body, "<f4" if scale < 0 else ">f4", w * h).reshape(h, w)[::-1]
+    with np.errstate(invalid="ignore"):
+        gray = np.where(values <= 0, 0, np.where(values >= 255, 255,
+                                                 np.nan_to_num(values, nan=0.0)))
+    return _gray_rgb(gray.astype(np.uint8))
+
+
+def _pil_extension(magic: bytes, body: bytes, w: int, h: int, maxval: int) -> np.ndarray:
+    """PIL's own magics: binary samples, raw at maxval 255, else scaled as
+    ``PpmDecoder`` does (``min(255, round(v / maxval * 255))``); then CMYK
+    through PIL's ``cmyk2rgb``, RGBA without its alpha, and P (no palette
+    is read) black."""
+    bands = _PIL_EXTENSIONS[magic]
+    size = 1 if maxval < 256 else 2
+    n = w * h * bands
+    if len(body) < n * size:
+        raise ValueError(f"{magic.decode()} data ends early: PIL gets not enough image data")
+    values = np.frombuffer(body, ">u2" if size == 2 else np.uint8, n).astype(np.int64)
+    if maxval != 255:
+        values = np.minimum(255, np.round(values / maxval * 255)).astype(np.int64)
+    px = values.reshape(h, w, bands)
+    if magic == b"PyP":
+        return np.zeros((h, w, 3), np.uint8)
+    if magic == b"PyRGBA":
+        return px[:, :, :3].astype(np.uint8)
+    nk = 255 - px[:, :, 3:]
+    t = px[:, :, :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
 def _pil_decode(data: bytes) -> np.ndarray:
     magic, w, h, maxval, pos = _pil_header(data)
+    if magic == b"Pf":
+        return _pil_float(data[pos:], w, h, maxval)
+    if magic in _PIL_EXTENSIONS:
+        return _pil_extension(magic, data[pos:], w, h, maxval)
     bands, body = _BANDS[magic], data[pos:]
     n = w * h * bands
     if magic == b"P1":
@@ -237,9 +299,69 @@ def _cv2_header(data: bytes):
     return magic, width, height, maxval, pos
 
 
+def _cv2_token(data: bytes, pos: int):
+    """OpenCV's PFM ``read_number`` token: the bytes up to a whitespace
+    byte (consumed), each below 0x80, the data not ending first."""
+    end = pos
+    while True:
+        if end >= len(data):
+            raise ValueError("PFM header ends early: OpenCV fails on it")
+        c = data[end]
+        if c >= 0x80:
+            raise ValueError("PFM header byte past 0x7f: OpenCV fails on it")
+        if c in _WS:
+            return data[pos:end], end + 1
+        end += 1
+
+
+def _cv2_pfm(data: bytes) -> np.ndarray:
+    """cv2's PFM: ``Pf`` or ``PF``, a line break, then width and height
+    (``std::stoi`` of each token: a leading integer) and scale
+    (a leading float, inf and nan too; past the double range inf, below it
+    0). Rows bottom-up,
+    little-endian where the scale is negative (or nan); each sample times
+    ``float(1 / |scale|)`` in float32, then rounded half to even into
+    0..255 (2**31 and past, and NaN, become 0, as cvRound overflows). A
+    ``Pf`` page comes out of ``imdecode`` as one channel, not the (H, W,
+    3) page this route returns, so it is refused."""
+    if data[2:3] != b"\n":
+        raise ValueError("PFM magic not followed by a line break: OpenCV refuses the header")
+    numbers, pos = [], 3
+    for i in range(3):
+        token, pos = _cv2_token(data, pos)
+        m = (_FLOAT_RE if i == 2 else _INT_RE).match(token)
+        if m is None:
+            raise ValueError(f"PFM header token {token!r}: OpenCV's reader throws")
+        numbers.append(float(m.group()) if i == 2 else int(m.group()))
+    w, h, scale = numbers
+    if not (-2 ** 31 <= w < 2 ** 31 and -2 ** 31 <= h < 2 ** 31):
+        raise ValueError("PFM size out of int range: OpenCV's reader throws")
+    if w <= 0 or h <= 0 or max(w, h) > _CV2_MAX_SIDE or w * h > _CV2_MAX_PIXELS:
+        raise ValueError(f"PFM size {w}x{h}: cv2 refuses it")
+    if data[1:2] == b"f":
+        raise ValueError("gray PFM (Pf): cv2.imdecode(IMREAD_COLOR) returns one channel, not "
+                         "an (H, W, 3) page")
+    if not abs(scale) > 0:
+        raise ValueError(f"PFM scale {scale}: OpenCV asserts it non-zero")
+    n = w * h * 3
+    if len(data) < pos + 4 * n:
+        raise ValueError("PFM data ends early: OpenCV fails on it")
+    little = not scale >= 0
+    values = np.frombuffer(data, "<f4" if little else ">f4", n, pos).reshape(h, w, 3)[::-1]
+    with np.errstate(invalid="ignore"):  # inf or nan samples
+        scaled = values.astype(np.float32) * np.float32(1.0 / abs(scale))
+        fits = np.abs(scaled) < 2.0 ** 31
+        rounded = np.where(fits, np.rint(np.where(fits, scaled, 0)), 0)
+    return np.clip(rounded, 0, 255).astype(np.uint8)
+
+
 def _cv2_decode(data: bytes) -> np.ndarray:
     if data[:2] == b"P7":
         return _pam(data)
+    if data[:2] in (b"Pf", b"PF"):
+        return _cv2_pfm(data)
+    if data[:2] not in _BANDS:
+        raise ValueError(f"PNM magic {data[:2]!r}: cv2 does not read it")
     magic, w, h, maxval, pos = _cv2_header(data)
     bands = _BANDS[magic]
     n = w * h * bands

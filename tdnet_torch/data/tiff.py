@@ -14,8 +14,8 @@ Group 4 (both with ``FillOrder`` 1 or 2) and JPEG (code 7: each strip or
 tile a JPEG stream decoded by ``data/jpeg.py``, the ``JPEGTables`` tag
 spliced in before it, YCbCr converted to RGB by libjpeg and every other
 photometric left as the components are). Photometric min-is-white,
-min-is-black, RGB, palette (a 16-bit colormap), separated CMYK and YCbCr,
-at 1, 2, 4, 8 or 16 bits a sample. Outside JPEG, YCbCr is read as
+min-is-black, RGB, palette (a 16-bit colormap), separated CMYK, YCbCr and
+CIE L*a*b* (``data/cielab.py``), at 1, 2, 4, 8 or 16 bits a sample. Outside JPEG, YCbCr is read as
 libtiff's RGBA interface reads it for both routes: 8-bit data units
 subsampled 1x1 to 4x4 (``tif_getimage.c``, its 4x4 misreads kept) and
 ``tif_color.c``'s fixed-point conversion from ``YCbCrCoefficients`` and
@@ -36,8 +36,16 @@ The routes part where their decoders do:
   4-bit gray raise on its route.
 - A colormap whose entries are all below 256: libtiff (cv2) takes it for
   an 8-bit one, PIL keeps the high byte of each entry as for any other.
-- Uncompressed YCbCr: PIL reads the bytes as ``RGBX`` unconverted, and
-  raises where that runs past the end of the file (:func:`_pil_raw_ycbcr`).
+- Uncompressed YCbCr: PIL reads the bytes as ``RGBX`` unconverted, strips
+  and tiles, and raises where that runs past the end of the file
+  (:func:`_pil_raw_ycbcr`).
+- CIE L*a*b* (photometric 8, a* and b* signed): PIL reads 3 8-bit samples
+  in any layout and converts them through LittleCMS (Lab D50 -> sRGB);
+  cv2 reads 3 chunky samples of 8 or 16 bits through libtiff's CIELab
+  conversion, against the ``WhitePoint`` tag. They part by up to 80 on
+  random samples. Both refuse other sample counts, ICC L*a*b* (9) and
+  ITU L*a*b* (10); the port refuses JPEG-compressed L*a*b*, which is not
+  probed.
 - ``Orientation`` turns the page on both routes, and PIL's ``.size``
   (:func:`tiff_size`) reports the turned size.
 """
@@ -51,14 +59,14 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from tdnet_torch.data import jpeg
+from tdnet_torch.data import cielab, jpeg
 
 __all__ = ["SIGNATURES", "READS", "ROUTES", "decode_tiff", "tiff_size"]
 
 SIGNATURES = (b"II*\x00", b"MM\x00*")
 READS = ("TIFF (first page; strips or tiles, chunky or planar; none, PackBits, LZW, "
-         "deflate, CCITT G3/G4 or JPEG; gray, palette, RGB, CMYK or YCbCr at "
-         "1 to 16 bits)")
+         "deflate, CCITT G3/G4 or JPEG; gray, palette, RGB, CMYK, YCbCr or CIE L*a*b* "
+         "at 1 to 16 bits)")
 ROUTES = ("pil", "cv2")
 
 _COMPRESSIONS = {
@@ -76,7 +84,7 @@ _PHOTOMETRICS = {0: "min-is-white", 1: "min-is-black", 2: "RGB", 3: "palette",
                  4: "transparency mask", 5: "separated", 6: "YCbCr", 8: "CIE L*a*b*",
                  9: "ICC L*a*b*", 10: "ITU L*a*b*", 32844: "LogL", 32845: "LogLuv",
                  32803: "CFA", 34892: "linear raw"}
-_BASE = {0: 1, 1: 1, 2: 3, 3: 1, 5: 4, 6: 3}  # samples a pixel before extra ones
+_BASE = {0: 1, 1: 1, 2: 3, 3: 1, 5: 4, 6: 3, 8: 3}  # samples a pixel before extra ones
 
 # field types -> (struct code, bytes a value)
 _TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8), 6: ("b", 1),
@@ -86,9 +94,9 @@ _TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8), 6: (
 (_WIDTH, _HEIGHT, _BITS, _COMPRESSION, _PHOTOMETRIC, _FILL_ORDER, _STRIP_OFFSETS,
  _ORIENTATION, _SAMPLES, _ROWS_PER_STRIP, _STRIP_COUNTS, _PLANAR, _T4, _T6, _PREDICTOR,
  _COLORMAP, _TILE_WIDTH, _TILE_LENGTH, _TILE_OFFSETS, _TILE_COUNTS, _INK_SET, _EXTRA,
- _SAMPLE_FORMAT, _JPEG_TABLES, _LUMA, _SUBSAMPLING, _REF_BLACK_WHITE) = (
+ _SAMPLE_FORMAT, _JPEG_TABLES, _LUMA, _SUBSAMPLING, _REF_BLACK_WHITE, _WHITE_POINT) = (
     256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284, 292, 293, 317, 320, 322,
-    323, 324, 325, 332, 338, 339, 347, 529, 530, 532)
+    323, 324, 325, 332, 338, 339, 347, 529, 530, 532, 318)
 
 
 def _ifd(data: bytes) -> Tuple[str, Dict[int, tuple]]:
@@ -560,39 +568,58 @@ def _ycbcr_rgb(ycc: np.ndarray, fields) -> np.ndarray:
 def _pil_raw_ycbcr(data: bytes, fields, width: int, height: int) -> np.ndarray:
     """PIL's reading of an uncompressed YCbCr page: ``TiffImagePlugin``
     gives it the raw mode ``RGBX`` (meant for libtiff's RGBA output), so
-    its raw decoder takes 4 bytes a pixel from each strip's offset on,
-    the bytes as R, G and B, with no subsampling and no conversion (planar
-    pages: each plane as R, G, B at a byte a pixel), and fails ("image
-    file is truncated") where that runs past the end of the file.
-    ``ImageFile.load`` decodes the strips in the order of their offsets,
-    a strip covering the whole page from its last offset only."""
-    if _TILE_WIDTH in fields:
-        raise ValueError("uncompressed YCbCr TIFF in tiles is not read on the pil route")
+    its raw decoder takes 4 bytes a pixel from each strip's or tile's
+    offset on, the bytes as R, G and B, with no subsampling and no
+    conversion (planar pages: each plane as R, G, B at a byte a pixel),
+    and fails ("image file is truncated") where that runs past the end of
+    the file. A tile that reaches past the page's right edge is read with
+    rows ``width * 3`` bytes apart (the stride PIL works out from the
+    samples' 24 bits), which fails where a row's bytes are more than that.
+    ``ImageFile.load`` decodes the strips or tiles in the order of their
+    offsets, one covering the whole page from its last offset only."""
     planar = _one(fields, _PLANAR, 1)
-    step = _one(fields, _ROWS_PER_STRIP, height)
-    offsets = list(fields.get(_STRIP_OFFSETS, ()))
-    if step == height and planar != 2:
+    if _TILE_WIDTH in fields:
+        w, h = _one(fields, _TILE_WIDTH), _one(fields, _TILE_LENGTH)
+        offsets = list(fields.get(_TILE_OFFSETS, ()))
+    else:
+        w, h = width, _one(fields, _ROWS_PER_STRIP, height)
+        offsets = list(fields.get(_STRIP_OFFSETS, ()))
+    if w == width and h == height and planar != 2:
         offsets = offsets[-1:]
-    tiles, y, layer = [], 0, 0
+    line = w * sum(int(b) for b in fields.get(_BITS, (8, 8, 8))) // 8
+    tiles, x, y, layer = [], 0, 0, 0
     for offset in offsets:
-        tiles.append((offset, y, min(y + step, height), layer))
-        y += step
-        if y >= height:
-            y, layer = 0, layer + 1
+        stride = line if x + w > width else 0
+        if planar == 2:
+            stride //= len(fields.get(_BITS, (8, 8, 8)))
+        tiles.append((offset, x, y, min(x + w, width), min(y + h, height), layer, stride))
+        x += w
+        if x >= width:
+            x, y = 0, y + h
+            if y >= height:
+                y, layer = 0, layer + 1
     tiles.sort(key=lambda t: t[0])
     out = np.zeros((height, width, 3), np.uint8)
-    for offset, y0, y1, layer in tiles:
-        if planar != 2 or layer < 3:
-            px = 4 if planar != 2 else 1
-            n = (y1 - y0) * width * px
-            if offset + n > len(data):
-                raise ValueError("uncompressed YCbCr TIFF: PIL reads it as RGBX, 4 bytes a "
-                                 "pixel, past the end of the file (image file is truncated)")
-            rows = np.frombuffer(data, np.uint8, n, offset).reshape(y1 - y0, width, px)
-            if planar != 2:
-                out[y0:y1] = rows[:, :, :3]
-            else:
-                out[y0:y1, :, layer] = rows[:, :, 0]
+    for offset, x0, y0, x1, y1, layer, stride in tiles:
+        if planar == 2 and layer >= 3:
+            continue
+        px = 4 if planar != 2 else 1
+        row = (x1 - x0) * px
+        step = stride or row
+        if step < row:
+            raise ValueError("uncompressed YCbCr TIFF: PIL reads a tile past the right edge "
+                             f"with rows {step} bytes apart, under their {row} (decoder error)")
+        n = (y1 - y0 - 1) * step + row
+        if offset + n > len(data):
+            raise ValueError("uncompressed YCbCr TIFF: PIL reads it as RGBX, 4 bytes a "
+                             "pixel, past the end of the file (image file is truncated)")
+        rows = np.lib.stride_tricks.as_strided(
+            np.frombuffer(data, np.uint8, n, offset), (y1 - y0, row), (step, 1))
+        rows = rows.reshape(y1 - y0, x1 - x0, px)
+        if planar != 2:
+            out[y0:y1, x0:x1] = rows[:, :, :3]
+        else:
+            out[y0:y1, x0:x1, layer] = rows[:, :, 0]
     return out
 
 
@@ -638,7 +665,7 @@ def _samples(data: bytes):
                          "(unsigned integers only)")
     if spp < _BASE[photometric]:
         raise ValueError(f"TIFF {_PHOTOMETRICS[photometric]} with {spp} samples a pixel")
-    if photometric in (2, 5, 6) and bits < 8:
+    if photometric in (2, 5, 6, 8) and bits < 8:
         raise ValueError(f"{_PHOTOMETRICS[photometric]} TIFF at {bits} bits is not read")
     if photometric == 5 and _one(fields, _INK_SET, 1) != 1:
         raise ValueError("separated TIFF with an ink set other than CMYK is not read")
@@ -718,8 +745,41 @@ def _eight(v: np.ndarray, bits: int, route: str) -> np.ndarray:
     return ((v.astype(np.int64) * 255 + 32767) // 65535).astype(np.uint8)
 
 
+def _lab_rgb(image: np.ndarray, fields, bits: int, route: str) -> np.ndarray:
+    """CIE L*a*b*: PIL reads 3 8-bit samples (any layout) and converts them
+    through LittleCMS, whose a* and b* are offset by 128: PIL's chunky
+    ``LAB`` unpacker flips 0x80 of the file's signed bytes, its planar
+    bands copy them as they are. cv2 reads 3 chunky 8- or 16-bit samples
+    through libtiff's RGBA interface, against the ``WhitePoint`` tag."""
+    spp = image.shape[2]
+    if _one(fields, _COMPRESSION, 1) == 7:
+        raise ValueError("JPEG-compressed CIE L*a*b* TIFF is not read")
+    if route == "pil" and (spp != 3 or bits != 8):
+        raise ValueError(f"CIE L*a*b* TIFF of {spp} samples at {bits} bits: PIL reads 3 at 8")
+    if route == "cv2":
+        if spp != 3 or bits not in (8, 16):
+            raise ValueError(f"CIE L*a*b* TIFF of {spp} samples at {bits} bits: libtiff's RGBA "
+                             "interface (cv2) reads 3 at 8 or 16")
+        if _one(fields, _PLANAR, 1) != 1:
+            raise ValueError("CIE L*a*b* TIFF in planes: libtiff's RGBA interface (cv2) "
+                             "refuses it")
+        white = cielab.D50_WHITE_POINT
+        if _WHITE_POINT in fields:
+            v = np.asarray(fields[_WHITE_POINT][:4], np.float32)
+            if v.size < 4:
+                raise ValueError("CIE L*a*b* TIFF with a short WhitePoint")
+            white = tuple(np.float32(0) if d == 0 else n / d
+                          for n, d in ((v[0], v[1]), (v[2], v[3])))
+        return cielab.libtiff_rgb(image, bits, white)
+    if _one(fields, _PLANAR, 1) == 1:
+        image = image ^ np.array([0, 0x80, 0x80], np.uint8)
+    return cielab.lcms_rgb(image)
+
+
 def _rgb(image: np.ndarray, fields, bits: int, photometric: int, route: str) -> np.ndarray:
     spp = image.shape[2]
+    if photometric == 8:
+        return _lab_rgb(image, fields, bits, route)
     extra = int(fields.get(_EXTRA, (0,))[0]) if spp > _BASE[photometric] else 0
     if route == "cv2" and (bits == 2 or (bits == 4 and photometric != 3)):
         raise ValueError(f"{_PHOTOMETRICS[photometric]} TIFF at {bits} bits: cv2 reads "

@@ -242,11 +242,11 @@ def test_png_sixteen_bit_rules_differ_only_for_gray():
     raises."""
     for color in (0, 2, 4, 6):
         data = _random_png(color, 16, False, (7, 9), seed=color)
-        same = np.array_equal(png.decode_png(data, sixteen_bit="pil"),
-                              png.decode_png(data, sixteen_bit="cv2"))
+        same = np.array_equal(png.decode_png(data, route="pil"),
+                              png.decode_png(data, route="cv2"))
         assert same == (color != 0)
-    with pytest.raises(ValueError, match="sixteen_bit"):
-        png.decode_png(data, sixteen_bit="libpng")
+    with pytest.raises(ValueError, match="route"):
+        png.decode_png(data, route="libpng")
 
 
 CSV_ROWS = ["page0.png,5,6,40,30,table", "page0.png,50,10,90,60,figure",

@@ -792,6 +792,103 @@ def test_jpeg_lossless_by_each_route(case, predictor):
     _assert_both_routes(data)
 
 
+LOSSLESS_SAMPLINGS = {
+    "2x2,1x1,1x1": [(2, 2), (1, 1), (1, 1)], "2x1,1x1,1x1": [(2, 1), (1, 1), (1, 1)],
+    "1x2,1x1,1x1": [(1, 2), (1, 1), (1, 1)], "1x1,2x2,2x2": [(1, 1), (2, 2), (2, 2)],
+    "4x1,2x1,1x1": [(4, 1), (2, 1), (1, 1)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOSSLESS_SAMPLINGS))
+def test_jpeg_lossless_sampling_factors_by_each_route(case):
+    """Lossless JPEG whose components are subsampled (tools/jpeg_lossless.py
+    ``sampling=``), interleaved (MCUs of each component's h x v samples,
+    edges padded, restart intervals) or a scan a component, at sizes the
+    MCUs do and do not tile: libjpeg-turbo upsamples each component by
+    replication (no fancy upsampling without a DCT), on both routes; with
+    no JFIF or Adobe marker it takes the three components for RGB."""
+    sampling = LOSSLESS_SAMPLINGS[case]
+    rng = np.random.default_rng(len(case) + sum(h * v for h, v in sampling))
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    for h, w in ((20, 28), (21, 27), (3, 5)):
+        planes = [rng.integers(0, 256, (-(-h * v // vmax), -(-w * s // hmax)), dtype=np.uint8)
+                  for s, v in sampling]
+        for interleaved, restart in ((True, 0), (True, 1), (False, 0)):
+            kw = dict(rgb=True) if restart else dict(jfif=False)
+            data = _lossless(planes, int(rng.integers(1, 8)), pt=int(rng.integers(0, 3)),
+                             interleaved=interleaved, restart_rows=restart, sampling=sampling,
+                             **kw)
+            _assert_both_routes(data)
+
+
+def test_jpeg_lossless_without_markers_is_rgb():
+    """Three lossless components with no JFIF or Adobe marker are RGB to
+    libjpeg-turbo 3 whatever their ids (1, 2, 3 among them, which lossy
+    frames take for YCbCr); a JFIF marker or Adobe transform 1 makes them
+    YCbCr, which both routes refuse in lossless mode."""
+    img = _image((19, 23), 14)
+    plain = _lossless(img, 3, jfif=False)
+    _assert_both_routes(plain)
+    np.testing.assert_array_equal(jpeg.decode_jpeg(plain, route="pil"), img)
+    adobe1 = plain.replace(b"\xff\xd8", b"\xff\xd8\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00"
+                           b"\x00\x01", 1)
+    for data in (adobe1, _lossless(img, 3)):
+        with pytest.raises(OSError):
+            _pil(data)
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+        for route in jpeg.ROUTES:
+            with pytest.raises(ValueError, match="lossless YCC"):
+                jpeg.decode_jpeg(data, route=route)
+
+
+@pytest.mark.parametrize("precision", [12, 16])
+def test_jpeg_precisions_both_references_refuse(precision):
+    """12-bit lossy frames (SOF0, SOF1, SOF2) and 12- and 16-bit lossless
+    ones: the streams are valid at their precision (each an 8-bit file's
+    data under the new precision), and both references refuse them (PIL
+    cannot handle the layers; cv2 reads samples of up to 8 bits), as the
+    port does; ``image_size`` raises as PIL's open does."""
+    img = _image((16, 24), precision)
+    files = [_lossless(img, 1, jfif=False), _lossless(img[:, :, 0], 4)]
+    if precision == 12:
+        for kw in ({}, {"progressive": True}):
+            files.append(_pil_jpeg(img, quality=90, **kw))
+        files.append(files[-2].replace(b"\xff\xc0", b"\xff\xc1", 1))
+    for data in files:
+        marker = re.search(rb"\xff[\xc0-\xc3]", data).start()
+        bad = data[:marker + 4] + bytes([precision]) + data[marker + 5:]
+        with pytest.raises(OSError):
+            _pil(bad)
+        assert cv2.imdecode(np.frombuffer(bad, np.uint8), cv2.IMREAD_COLOR) is None
+        for route in jpeg.ROUTES:
+            with pytest.raises(ValueError, match=f"{precision}-bit JPEG: both references"):
+                jpeg.decode_jpeg(bad, route=route)
+        with pytest.raises(ValueError, match="PIL cannot handle"):
+            jpeg.jpeg_size(bad)
+
+
+@pytest.mark.parametrize("precision", [2, 5, 7])
+def test_jpeg_lossless_below_8_bits(precision):
+    """Lossless frames of 2 to 7 bits (tools/jpeg_lossless.py
+    ``precision=``; the first prediction 2^(P - Pt - 1)): cv2 reads their
+    samples as they are, unscaled (gray refused as at 8 bits), and PIL
+    cannot handle the layers."""
+    rng = np.random.default_rng(precision)
+    img = rng.integers(0, 1 << precision, (9, 13, 3), dtype=np.uint8)
+    for pt, kw in ((0, dict(rgb=True)), (1, dict(jfif=False, restart_rows=2))):
+        data = _lossless(img, int(rng.integers(1, 8)), pt=pt, precision=precision, **kw)
+        np.testing.assert_array_equal(_cv2(data), (img >> pt) << pt)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(data, route="cv2"), _cv2(data))
+        with pytest.raises(OSError):
+            _pil(data)
+        with pytest.raises(ValueError, match="PIL cannot handle"):
+            jpeg.decode_jpeg(data, route="pil")
+    gray = _lossless(img[:, :, 0], 2, precision=precision)
+    assert cv2.imdecode(np.frombuffer(gray, np.uint8), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match="lossless gray"):
+        jpeg.decode_jpeg(gray, route="cv2")
+
+
 def _with_marker(data: bytes, old: bytes, new: bytes) -> bytes:
     assert old in data
     return data.replace(old, new, 1)
@@ -1009,9 +1106,9 @@ def test_no_fallback_decoder(tmp_path):
     """With PIL, cv2, jax and tdnet poisoned in sys.modules, read_image_bgr
     still decodes a JPEG (sequential, progressive, arithmetic-coded and
     lossless), a BMP (raw and RLE8), TIFF pages (LZW with a predictor,
-    CCITT G4, JPEG, YCbCr), a PPM, a GIF, a byte-encoded Sun raster and
-    WebP pages (lossy, lossless, lossy with alpha), to the pixels PIL gives
-    here."""
+    CCITT G4, JPEG, YCbCr, CIE L*a*b*), a PPM, a gray PFM, a GIF, a
+    byte-encoded Sun raster, WebP pages (lossy, lossless, lossy with alpha)
+    and an APNG, to the pixels PIL gives."""
     img = _image((30, 41), 12)
     page = Image.fromarray(img)
     rle = bytes([3, 1, 3, 2, 0, 0, 2, 3, 4, 0, 0, 0, 6, 1, 0, 0, 0, 1])
@@ -1042,6 +1139,15 @@ def test_no_fallback_decoder(tmp_path):
         files[name] = buf.getvalue()
     files["ar.jpg"] = transcode(files["a.jpg"], progressive=True)
     files["ll.jpg"] = _lossless(img, 5, rgb=True)
+    buf = io.BytesIO()
+    page.save(buf, "PNG", save_all=True, default_image=True,
+              append_images=[Image.fromarray(img[::-1]), Image.fromarray(img[:, ::-1])])
+    files["an.png"] = buf.getvalue()
+    buf = io.BytesIO()
+    page.convert("LAB").save(buf, "TIFF", compression="tiff_lzw")
+    files["lab.tif"] = buf.getvalue()
+    gray = img[..., 0].astype(np.float32) + np.float32(0.5)
+    files["g.pfm"] = b"Pf\n41 30\n-1.0\n" + gray[::-1].astype("<f4").tobytes()
     cmap = bytes(range(0, 256, 16)) * 3
     files["s.ras"] = struct.pack(">8I", 0x59A66A95, 3, 2, 8, 7, 2, 1, 48) + cmap + bytes(
         [0x80, 2, 7, 9, 0x80, 0, 4])

@@ -190,23 +190,29 @@ def test_predictor_over_the_pages_matches_reference(csv_pages):
 # chip_smoke.py's pages phase checks them at full size
 SLOW_PAGES = ("arith_seq.jpg", "arith_prog.jpg", "arith_big.jpg", "lossless.jpg",
               "vp8l_rgb.webp", "vp8_q80.webp", "vp8x_alpha.webp", "vp8x_exif6.webp",
-              "vp8_simple4.webp")
+              "vp8_simple4.webp", "apng_default.png")
 
 
 def test_golden_pages_equal_their_digests():
     """tests/golden/pages (tools/make_pages.py): the full-size pages decode
     by both routes to the SHA-256 the references gave (the CMYK page's
     routes apart), a route the reference refuses raises (the RLE Sun
-    raster on cv2's), and their sizes read from the headers. The file
-    lists all 22 pages; this test decodes the cheap ones, the eight of
-    earlier slices, ycc_lzw.tif, page.pbm, page.gif, rle.ras and
-    vp8l_palette.webp, and leaves the arithmetic-coded and lossless JPEGs
-    and the other WebP pages (SLOW_PAGES) to the card's pages phase, which
-    decodes them all."""
+    raster, the gray PFM and the 12-bit JPEG on cv2's; the HDR page and
+    the 12-bit JPEG on PIL's), and their sizes read from the headers (or
+    ``image_size`` raising where PIL cannot open the file). The file lists
+    all 28 pages; this test decodes the cheap ones, the eight of earlier
+    slices, ycc_lzw.tif, page.pbm, page.gif, rle.ras, vp8l_palette.webp,
+    exif6.png, lab.tif, jpeg12.jpg, gray.pfm and page.hdr, and leaves the
+    arithmetic-coded and lossless JPEGs, the other WebP pages and the APNG
+    (SLOW_PAGES) to the card's pages phase, which decodes them all."""
     digests = json.loads((GOLDEN / "digests.json").read_text())
-    assert len(digests) == 22
+    assert len(digests) == 28
     for name, info in digests.items():
-        assert list(port_image.image_size(GOLDEN / name)) == info["size"]
+        if info["size"] is None:
+            with pytest.raises(ValueError):
+                port_image.image_size(GOLDEN / name)
+        else:
+            assert list(port_image.image_size(GOLDEN / name)) == info["size"]
         if name in SLOW_PAGES:
             continue
         data = (GOLDEN / name).read_bytes()

@@ -264,3 +264,85 @@ def test_pnm_through_decode_image_read_image_and_image_size(tmp_path):
     np.testing.assert_array_equal(decode_image(enc.tobytes(), route="cv2"), _cv2(enc.tobytes()))
     with pytest.raises(ValueError, match="route"):
         pnm.decode_pnm(enc.tobytes(), route="tf")
+
+
+def _pfm(magic: bytes, values: np.ndarray, scale: bytes = b"-1.0", header=None) -> bytes:
+    """A PFM of (H, W) or (H, W, 3) floats, rows bottom-up, little-endian
+    where the scale is negative (or nan)."""
+    h, w = values.shape[:2]
+    little = scale.startswith(b"-") or scale == b"nan"
+    head = header if header is not None else magic + b"\n%d %d\n" % (w, h) + scale + b"\n"
+    return head + values.astype("<f4" if little else ">f4")[::-1].tobytes()
+
+
+def _check_pfm(data: bytes):
+    """PIL reads Pf (mode F, each value cut toward zero into 0..255);
+    cv2 reads PF (each value times 1 / |scale|, rounded half to even) and
+    returns Pf as one channel, which the port's cv2 route refuses."""
+    want_pil = _pil(data)
+    try:
+        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    except cv2.error:  # an exception from the decoder is a refusal
+        bgr = None
+    if want_pil is None:
+        with pytest.raises(ValueError):
+            pnm.decode_pnm(data, route="pil")
+    else:
+        np.testing.assert_array_equal(pnm.decode_pnm(data, route="pil"), want_pil)
+        assert pnm.pnm_size(data) == Image.open(io.BytesIO(data)).size
+    if bgr is None or bgr.ndim == 2:
+        with pytest.raises(ValueError):
+            pnm.decode_pnm(data, route="cv2")
+    else:
+        np.testing.assert_array_equal(pnm.decode_pnm(data, route="cv2"), bgr[:, :, ::-1])
+    return want_pil, bgr
+
+
+@pytest.mark.parametrize("magic", [b"Pf", b"PF"], ids=["gray", "colour"])
+def test_pfm_by_each_route(magic):
+    """PFM at scales of either sign and size, with NaN, infinities, halves
+    and values past 255 and past 2**31: PIL reads gray PFM only; cv2 reads
+    both, the gray one as a single channel (not an (H, W, 3) page)."""
+    rng = np.random.default_rng(len(magic) + magic[1])
+    values = (rng.random((9, 13, 3)) * 320 - 30).astype(np.float32)
+    values[0, :6, 0] = [np.nan, np.inf, -np.inf, 254.5, 0.5, 1e10]
+    values = values[:, :, 0] if magic == b"Pf" else values
+    outcomes = set()
+    for scale in (b"-1.0", b"1.0", b"-3.5", b"2", b"-0.3", b"1e999", b"-inf", b"0", b"nan",
+                  b"-1e-400", b"-1x"):
+        pil, bgr = _check_pfm(_pfm(magic, values, scale))
+        outcomes.add((pil is not None, None if bgr is None else bgr.ndim))
+    assert outcomes == ({(True, 2), (False, 2), (False, None)} if magic == b"Pf"
+                        else {(False, 3), (False, None)})
+
+
+def test_pfm_headers():
+    """Header forms each route parses its own way: cv2 wants a line feed
+    right after the magic and reads each token up to one whitespace byte
+    (a leading number, as std::stoi does); PIL reads tokens as for any
+    PNM, comments too. A short body fails on both."""
+    values = np.random.default_rng(5).random((4, 6, 3)).astype(np.float32) * 255
+    for magic, v in ((b"Pf", values[:, :, 0]), (b"PF", values)):
+        for head in (b"%s 6 4 -1\n", b"%s\r\n6 4\r\n-1\r\n", b"%s\n6  4\n-1\n",
+                     b"%s\n# c\n6 4\n-1\n", b"%s\n6\t4\n-1\n", b"%s\n6.0 4\n-1\n",
+                     b"%s\n0 4\n-1\n", b"%s\n6 4\n-1 "):
+            _check_pfm(_pfm(magic, v, header=head % magic))
+        _check_pfm(_pfm(magic, v)[:-3])
+        _check_pfm(_pfm(magic, v) + b"more")
+
+
+@pytest.mark.parametrize("magic", [b"P0CMYK", b"PyCMYK", b"PyRGBA", b"PyP"])
+def test_pil_extension_magics(magic):
+    """PIL's own magics: binary samples at maxvals 255, 100, 1000 and
+    65535 (PIL scales by maxval), CMYK through PIL's cmyk2rgb, RGBA without
+    its alpha, P black (no palette is read); a short body fails. cv2 reads
+    none of them."""
+    bands = 1 if magic == b"PyP" else 4
+    px = np.random.default_rng(len(magic)).integers(0, 256, (5, 7, bands))
+    for maxval in (255, 100, 1000, 65535):
+        body = (np.minimum(px, maxval) if maxval < 256 else px * (maxval // 255))
+        data = magic + b" 7 5 %d\n" % maxval + body.astype(
+            ">u2" if maxval > 255 else np.uint8).tobytes()
+        _check(data, refused=("cv2",))
+    with pytest.raises(ValueError):
+        pnm.decode_pnm(data[:-3], route="pil")

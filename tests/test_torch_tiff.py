@@ -508,7 +508,8 @@ def test_tiff_ycbcr_coefficients_reference_and_planes():
 
 def test_tiff_cases_that_raise():
     """What the port does not read raises on both routes with a message
-    that names it; a YCbCr page outside JPEG, once among them, decodes."""
+    that names it; a YCbCr page outside JPEG and a CIE L*a*b* page, once
+    among them, decode."""
     img = _image((12, 16), 9)
     page = Image.fromarray(img)
     cases = {
@@ -518,7 +519,8 @@ def test_tiff_cases_that_raise():
         "subsampled 2x2 in planes": _tiff(img, photometric=6, compression=5, planar=2),
         "YCbCr TIFF of 4 samples": _tiff(np.dstack([img, img[:, :, :1]]), photometric=6,
                                          compression=5, subsampling=(1, 1)),
-        "CIE L\\*a\\*b\\*": _tiff(img, photometric=8),
+        "ICC L\\*a\\*b\\*": _tiff(img, photometric=9),
+        "ITU L\\*a\\*b\\*": _tiff(img, photometric=10),
         "Predictor 3": _tiff(img, compression=5, predictor=3),
         "sample format": _tiff(img, tags={339: (3, [3, 3, 3])}),
         "at 32 bits": _tiff(img.astype(np.int64), 32, 2),
@@ -534,6 +536,7 @@ def test_tiff_cases_that_raise():
         tiff.decode_tiff(_tiff(img), route="tf")
     # read outside JPEG since YCbCr's conversion was ported; both routes
     _assert_both_routes(_pil_tiff(page.convert("YCbCr"), compression="tiff_lzw"))
+    _assert_both_routes(_tiff(img, photometric=8))  # since CIE L*a*b*'s were
 
 
 def test_tiff_through_read_image_and_image_size(tmp_path):
@@ -547,3 +550,106 @@ def test_tiff_through_read_image_and_image_size(tmp_path):
         np.testing.assert_array_equal(read_image_bgr(path), want)
         assert image_size(path) == Image.open(path).size
     assert image_size(tmp_path / "b.tiff") == (21, 34)
+
+
+def _routes_or_refusals(data: bytes, name: str = ""):
+    """Each route equals its reference, or raises where the reference
+    refuses the file (PIL raises, cv2 returns None)."""
+    for route, oracle in (("pil", _pil), ("cv2", _cv2)):
+        try:
+            want = oracle(data)
+        except (OSError, ValueError):
+            want = None
+        if want is None:
+            with pytest.raises(ValueError):
+                tiff.decode_tiff(data, route=route)
+            continue
+        got = tiff.decode_tiff(data, route=route)
+        assert got.shape == want.shape and np.array_equal(got, want), (name, route)
+
+
+LAB = {  # name: (bits, samples, _tiff arguments); sample values fit their bits
+    "strips": (8, 3, dict(rows_per_strip=7)),
+    "lzw_predictor_big_endian": (8, 3, dict(compression=5, predictor=2, big_endian=True)),
+    "deflate": (8, 3, dict(compression=8)),
+    "lzw_tiles": (8, 3, dict(compression=5, tile=(16, 32))),
+    "planar": (8, 3, dict(planar=2, compression=32773)),
+    "orientation": (8, 3, dict(tags={274: (3, [6])})),
+    "white_point_d65": (8, 3, dict(tags={318: (5, [3127, 10000, 3290, 10000])})),
+    "16_bit": (16, 3, dict(compression=5)),
+    "one_sample": (8, 1, {}),
+    "alpha": (8, 4, dict(tags={338: (3, [2])})),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAB))
+def test_tiff_cielab_by_each_route(case):
+    """CIE L*a*b* pages (photometric 8, a* and b* signed): PIL reads 3
+    8-bit samples in any layout and converts them through LittleCMS, cv2
+    reads 3 chunky 8- or 16-bit samples through libtiff's RGBA interface
+    against the WhitePoint tag; the two part by up to 80 on random
+    samples. Each refuses the rest."""
+    bits, spp, kw = LAB[case]
+    rng = np.random.default_rng(len(case))
+    lab = rng.integers(0, 1 << bits, (40, 57, spp)).astype(np.int64)
+    _routes_or_refusals(_tiff(lab, bits, 8, **kw), case)
+
+
+def test_tiff_cielab_from_pil_and_the_photometrics_both_refuse():
+    """PIL's own LAB writer; the routes part by up to 80 on its random
+    samples. ICC L*a*b* (9) and ITU L*a*b* (10) are refused by both
+    references and by the port."""
+    rng = np.random.default_rng(3)
+    lab = rng.integers(0, 256, (30, 44, 3), dtype=np.uint8)
+    data = _pil_tiff(Image.frombytes("LAB", (44, 30), lab.tobytes()), compression="tiff_lzw")
+    _assert_both_routes(data)
+    routes = [tiff.decode_tiff(data, route=r).astype(int) for r in tiff.ROUTES]
+    assert 60 <= np.abs(routes[0] - routes[1]).max() <= 90
+    for photometric in (9, 10):
+        data = _tiff(lab.astype(np.int64), 8, photometric)
+        with pytest.raises(OSError):
+            _pil(data)
+        assert _cv2(data) is None
+        for route in tiff.ROUTES:
+            with pytest.raises(ValueError, match="L\\*a\\*b\\*"):
+                tiff.decode_tiff(data, route=route)
+
+
+def test_cielab_conversions_equal_their_references():
+    """``data/cielab.py`` on 60000 random 8-bit triples, and the 16-bit
+    libtiff path on 20000, against PIL's LittleCMS transform and cv2's
+    libtiff read (the whole 8-bit cube was held once, outside the
+    suite)."""
+    from tdnet_torch.data import cielab
+
+    rng = np.random.default_rng(4)
+    lab = rng.integers(0, 256, (200, 300, 3), dtype=np.uint8)
+    want = np.asarray(Image.frombytes("LAB", (300, 200), lab.tobytes()).convert("RGB"))
+    # Image.frombytes("LAB") flips 0x80 of a* and b*, as PIL's TIFF reader does
+    np.testing.assert_array_equal(cielab.lcms_rgb(lab ^ np.array([0, 0x80, 0x80], np.uint8)),
+                                  want)
+    np.testing.assert_array_equal(cielab.libtiff_rgb(lab, 8),
+                                  _cv2(_tiff(lab.astype(np.int64), 8, 8)))
+    lab16 = rng.integers(0, 65536, (100, 200, 3)).astype(np.int64)
+    np.testing.assert_array_equal(cielab.libtiff_rgb(lab16, 16), _cv2(_tiff(lab16, 16, 8)))
+
+
+@pytest.mark.parametrize("shape", [(32, 32), (20, 28), (17, 40), (40, 70)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_tiff_uncompressed_ycbcr_tiles_on_the_pil_route(shape):
+    """Uncompressed YCbCr in tiles, chunky and planar: PIL reads each tile
+    as RGBX from its offset (rows 3 * tile width bytes apart in a tile past
+    the right edge), and fails where that runs past the end of the file or
+    the row's bytes exceed that stride, as the port's pil route does."""
+    rng = np.random.default_rng(shape[1])
+    ycc = rng.integers(0, 256, shape + (3,)).astype(np.int64)
+    for tile in ((16, 16), (32, 16), (48, 16)):
+        for planar in (1, 2):
+            data = _tiff(ycc, 8, 6, subsampling=(1, 1), tile=tile, planar=planar)
+            try:
+                want = _pil(data)
+            except OSError:
+                with pytest.raises(ValueError, match="PIL reads"):
+                    tiff.decode_tiff(data, route="pil")
+                continue
+            np.testing.assert_array_equal(tiff.decode_tiff(data, route="pil"), want)

@@ -85,55 +85,84 @@ def _segment(marker: int, body: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
 
 
-def encode(samples: np.ndarray, predictor: int = 1, pt: int = 0, restart_rows: int = 0,
-           rgb: bool = False, interleaved: bool = True) -> bytes:
-    """(H, W) or (H, W, C) uint8 samples -> a lossless JPEG (precision 8,
-    sampling 1x1). ``restart_rows``: rows a restart interval; ``rgb``: an
-    Adobe marker with transform 0, so libjpeg takes three components for
-    RGB (else JFIF: YCbCr); ``interleaved``: one scan of every component,
-    else a scan each."""
-    x = np.asarray(samples, np.uint8)
-    if x.ndim == 2:
-        x = x[:, :, None]
-    h, w, nc = x.shape
-    x = x.astype(np.int64) >> pt
-    rows = np.arange(h)
-    first = (rows % restart_rows == 0) if restart_rows else rows == 0
-    diffs = [(x[:, :, c] - _predictions(x[:, :, c], predictor, first, 1 << (8 - pt - 1)))
-             & 0xFFFF for c in range(nc)]
-    cats = [_categories(d) for d in diffs]
+def encode(samples, predictor: int = 1, pt: int = 0, restart_rows: int = 0,
+           rgb: bool = False, interleaved: bool = True, sampling=None, jfif=None,
+           precision: int = 8) -> bytes:
+    """(H, W) or (H, W, C) uint8 samples below ``2 ** precision`` -> a
+    lossless JPEG of that precision (2 to 8).
+    ``restart_rows``: MCU rows a restart interval; ``rgb``: an Adobe marker
+    with transform 0, so libjpeg takes three components for RGB (else a
+    JFIF marker, which makes them YCbCr; ``jfif=False`` writes no marker,
+    and libjpeg-turbo then takes three lossless components for RGB);
+    ``interleaved``: one scan of every component, else a scan each.
+    ``sampling``: each component's (h, v) sampling factors, with
+    ``samples`` a list of each component's own plane (``ceil(W * h /
+    hmax)`` by ``ceil(H * v / vmax)`` samples; where interleaved MCUs
+    reach past a plane, its edge samples are repeated into them)."""
+    if sampling is None:
+        x = np.asarray(samples, np.uint8)
+        if x.ndim == 2:
+            x = x[:, :, None]
+        planes = [x[:, :, c] for c in range(x.shape[2])]
+        sampling = [(1, 1)] * len(planes)
+    else:
+        planes = [np.asarray(p, np.uint8) for p in samples]
+    nc = len(planes)
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    height = max(p.shape[0] for p, (_, v) in zip(planes, sampling) if v == vmax)
+    width = max(p.shape[1] for p, (h, _) in zip(planes, sampling) if h == hmax)
+    mcux = -(-width // hmax) if interleaved and nc > 1 else None
+    if restart_rows and not (interleaved or set(sampling) == {(1, 1)}):
+        raise ValueError("restart intervals are written for interleaved scans or 1x1 sampling")
+    if mcux is not None:  # interleaved MCUs cover whole blocks: pad by the edge samples
+        mcuy = -(-height // vmax)
+        planes = [np.pad(p, ((0, mcuy * v - p.shape[0]), (0, mcux * h - p.shape[1])), "edge")
+                  for p, (h, v) in zip(planes, sampling)]
+    cats = []
+    for p, (h, v) in zip(planes, sampling):
+        rows = np.arange(p.shape[0])
+        first = (rows % (restart_rows * v) == 0) if restart_rows else rows == 0
+        xs = p.astype(np.int64) >> pt
+        d = (xs - _predictions(xs, predictor, first, 1 << (precision - pt - 1))) & 0xFFFF
+        cats.append(_categories(d))
     out = bytearray(b"\xff\xd8")
     if rgb:
         out += _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x00")
-    elif nc == 3:
+    elif nc == 3 and jfif is not False:
         out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    out += _segment(0xC3, struct.pack(">BHHB", 8, h, w, nc)
-                    + b"".join(bytes([c + 1, 0x11, 0]) for c in range(nc)))
+    out += _segment(0xC3, struct.pack(">BHHB", precision, height, width, nc)
+                    + b"".join(bytes([c + 1, (h << 4) | v, 0])
+                               for c, (h, v) in enumerate(sampling)))
     tables = []
     for c in range(nc):
         counts = np.bincount(cats[c][0].ravel(), minlength=17)
         tables.append(_huffman(counts))
         out += _segment(0xC4, bytes([c]) + tables[c][0] + tables[c][1])
     if restart_rows:
-        out += _segment(0xDD, struct.pack(">H", restart_rows * w))
+        out += _segment(0xDD, struct.pack(">H", restart_rows * (mcux or width)))
     groups = [list(range(nc))] if interleaved else [[c] for c in range(nc)]
     for group in groups:
         out += _segment(0xDA, bytes([len(group)]) + b"".join(bytes([c + 1, c << 4])
                                                               for c in group)
                         + bytes([predictor, 0, pt]))
-        starts = np.flatnonzero(first).tolist() + [h]
+        units = []  # per component: (code, extra) and their lengths, in MCU order
+        for c in group:
+            h, v = sampling[c] if len(group) > 1 else (1, 1)
+            cat, extra = cats[c]
+            code = np.array([tables[c][2][k][0] for k in range(17)])[cat]
+            size = np.array([tables[c][2][k][1] for k in range(17)])[cat]
+            vals = np.stack([code, extra], axis=-1)
+            lens = np.stack([size, np.where(cat < 16, cat, 0)], axis=-1)
+            ph, pw = cat.shape
+            # (MCU rows, v, MCUs, h, 2) -> (MCU rows, MCUs, v * h * 2)
+            units.append(tuple(a.reshape(ph // v, v, pw // h, h, 2).transpose(0, 2, 1, 3, 4)
+                               .reshape(ph // v, pw // h, -1) for a in (vals, lens)))
+        mcu_rows = units[0][0].shape[0]
+        starts = list(range(0, mcu_rows, restart_rows or mcu_rows)) + [mcu_rows]
         for n, (r0, r1) in enumerate(zip(starts[:-1], starts[1:])):
             if n:
                 out += bytes([0xFF, 0xD0 + (n - 1) % 8])
-            # per sample in MCU order: its category's code, then its extra bits
-            values, lengths = [], []
-            for c in group:
-                cat, extra = cats[c][0][r0:r1], cats[c][1][r0:r1]
-                code = np.array([tables[c][2][k][0] for k in range(17)])[cat]
-                size = np.array([tables[c][2][k][1] for k in range(17)])[cat]
-                values.append(np.stack([code, extra], axis=-1))
-                lengths.append(np.stack([size, np.where(cat < 16, cat, 0)], axis=-1))
-            values = np.stack(values, axis=2).reshape(-1)
-            lengths = np.stack(lengths, axis=2).reshape(-1)
+            values = np.concatenate([u[0][r0:r1] for u in units], axis=2).reshape(-1)
+            lengths = np.concatenate([u[1][r0:r1] for u in units], axis=2).reshape(-1)
             out += _stuffed(values, lengths)
     return bytes(out + b"\xff\xd9")

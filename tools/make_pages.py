@@ -37,8 +37,8 @@ pages come from tools/make_jpeg_pages.py's ``table_page`` with seed 8:
   as its colormap (an encoder of this tool's own): PIL reads it, cv2
   refuses the type;
 
-and six WebP pages drawn from a generator of their own (seed 9), so that
-the pages above keep their bytes:
+six WebP pages drawn from a generator of their own (seed 9), so that the
+pages above keep their bytes:
 
 - ``vp8l_palette.webp``: Pillow's default lossless (``VP8L``: a palette of
   the page's colours, bundled);
@@ -50,10 +50,28 @@ the pages above keep their bytes:
 - ``vp8x_exif6.webp``: lossy with an EXIF Orientation of 6: cv2 turns the
   page, PIL does not, so the routes part;
 - ``vp8_simple4.webp``: lossy, rewritten by tools/webp_rewrite.py to the
-  simple loop filter in 4 token partitions.
+  simple loop filter in 4 token partitions;
+
+and six more from a third generator (seed 13):
+
+- ``apng_default.png``: an animated PNG whose IDAT image is not a frame
+  (Pillow's ``default_image=True``; two frames, the second a one-pixel
+  change of the first): PIL reads the IDAT image, cv2 the first frame;
+- ``exif6.png``: a PNG with an ``eXIf`` Orientation of 6: cv2 turns the
+  page, PIL does not;
+- ``lab.tif``: CIE L*a*b* TIFF, LZW (Pillow's ``convert("LAB")``): PIL
+  converts it through LittleCMS, cv2 through libtiff, so the routes part;
+- ``jpeg12.jpg``: a 12-bit sequential JPEG (SOF1; Pillow's quality-90
+  Huffman data under precision 12): both references refuse it;
+- ``gray.pfm``: a gray PFM (``Pf``, little-endian) of the page at half
+  size (floats 0.25 above its gray levels): PIL reads it, cv2 returns one
+  channel, which the serve route refuses;
+- ``page.hdr``: Radiance HDR, run-length scanlines (cv2's encoder, the
+  page / 255): cv2 reads it, PIL cannot identify it.
 
 Where a reference refuses a page, ``digests.json`` holds null for its
-digest and the reason under ``refused`` (PIL's exception, or cv2's None).
+digest and the reason under ``refused`` (PIL's exception, or cv2's None or
+one-channel array); a page PIL cannot open has a null ``size``.
 
 The GPU machine has neither PIL nor cv2, so the files are made here and
 committed. Run from the repo root:  python tools/make_pages.py
@@ -80,6 +98,9 @@ OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "golden", "pages")
 SEED = 8  # the first seed whose pages table_page draws without an empty range
 N_PAGES = 16
 WEBP_SEED = 9  # the WebP pages' own generator: the pages above keep theirs
+# the APNG, EXIF PNG, Lab TIFF, 12-bit JPEG, PFM and HDR pages: the first
+# seed from 10 whose seven pages table_page draws
+SLICE20_SEED = 13
 
 
 def pil_bytes(im: Image.Image, fmt: str, **kw) -> bytes:
@@ -180,6 +201,38 @@ def webp_pages(pages) -> dict:
     }
 
 
+def slice20_pages(pages) -> dict:
+    """The six pages of PNG, TIFF, JPEG, PFM and HDR cases, drawn from their
+    own generator and appended to ``pages`` in the order of the files
+    returned."""
+    rng = np.random.default_rng(SLICE20_SEED)
+    drawn = [table_page(rng, LANDSCAPE) for _ in range(7)]
+    drawn[5] = (np.ascontiguousarray(drawn[5][0][::2, ::2]),
+                [[v // 2 for v in b] for b in drawn[5][1]])
+    frame = drawn.pop(1)[0]  # the APNG's first frame (cv2's), not a page of its own
+    pages += drawn
+    page = [Image.fromarray(p) for p, _ in drawn]
+    changed = frame.copy()
+    changed[0, 0] = 255 - changed[0, 0]
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    gray = np.asarray(page[4].convert("L"), np.float32) + np.float32(0.25)
+    ok, hdr = cv2.imencode(".hdr", drawn[5][0][:, :, ::-1].astype(np.float32) / 255)
+    assert ok
+    twelve = pil_bytes(page[3], "JPEG", quality=90)
+    assert twelve.count(b"\xff\xc0\x00\x11\x08") == 1
+    return {
+        "apng_default.png": pil_bytes(page[0], "PNG", save_all=True, default_image=True,
+                                      append_images=[Image.fromarray(frame),
+                                                     Image.fromarray(changed)]),
+        "exif6.png": pil_bytes(page[1], "PNG", exif=exif),
+        "lab.tif": pil_bytes(page[2].convert("LAB"), "TIFF", compression="tiff_lzw"),
+        "jpeg12.jpg": twelve.replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc1\x00\x11\x0c"),
+        "gray.pfm": b"Pf\n%d %d\n-1.0\n" % gray.shape[::-1] + gray[::-1].astype("<f4").tobytes(),
+        "page.hdr": hdr.tobytes(),
+    }
+
+
 def reference_decodes(data: bytes):
     """(PIL's RGB decode or None, cv2's BGR decode or None, the refusals)."""
     refused = {}
@@ -190,6 +243,8 @@ def reference_decodes(data: bytes):
     bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     if bgr is None:
         refused["cv2"] = "cv2.imdecode returned None"
+    elif bgr.ndim == 2:
+        bgr, refused["cv2"] = None, "cv2.imdecode returned one channel, not a BGR page"
     return pil, bgr, refused
 
 
@@ -225,16 +280,22 @@ def main():
         "rle.ras": rle_ras(pages[15][0]),
     }
     files.update(webp_pages(pages))
+    files.update(slice20_pages(pages))
     digests = {}
     for (name, data), (_, boxes) in zip(files.items(), pages):
         with open(os.path.join(OUT, name), "wb") as f:
             f.write(data)
         pil, bgr, refused = reference_decodes(data)
-        assert len(refused) < 2, (name, refused)
+        assert len(refused) < 2 or name == "jpeg12.jpg", (name, refused)  # both refuse it
+        decoded = bgr if bgr is not None else pil
+        try:
+            size = list(Image.open(io.BytesIO(data)).size)
+        except OSError:  # PIL cannot open it: image_size raises
+            size = None
         digests[name] = {
             "bytes": len(data),
-            "size": list(Image.open(io.BytesIO(data)).size),
-            "cv2_shape": list((bgr if bgr is not None else pil).shape),
+            "size": size,
+            "cv2_shape": None if decoded is None else list(decoded.shape),
             "pil_rgb_sha256": None if pil is None else hashlib.sha256(pil.tobytes()).hexdigest(),
             "cv2_bgr_sha256": None if bgr is None else hashlib.sha256(bgr.tobytes()).hexdigest(),
             "routes_equal": None if refused else bool(np.array_equal(pil, bgr[:, :, ::-1])),
