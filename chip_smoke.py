@@ -3205,7 +3205,10 @@ def phase_pages(dev):
     APNG whose IDAT image is not a frame (the routes part: cv2 reads the
     first frame), a PNG with EXIF orientation 6 (cv2 turns it), a CIE
     L*a*b* TIFF (LittleCMS on the file route, libtiff on the body route),
-    a 12-bit JPEG, a gray PFM and a Radiance HDR page) decoded by both
+    a 12-bit JPEG, a gray PFM and a Radiance HDR page; JPEG 2000: a 9/7
+    JP2 with three rate layers, a 5/3 RPCL codestream in 512x512 tiles
+    with 128x128 precincts, cv2's own JP2 and a 16-bit gray JP2 on which
+    the routes part) decoded by both
     routes, each SHA-256 equal to the references' in ``digests.json``,
     each route a reference refuses raising (PIL's on the arithmetic page
     past its first 64 KiB, the 12-bit JPEG and the HDR page; cv2's on the
@@ -3336,7 +3339,8 @@ def phase_pages(dev):
     ctypes = {".jpg": "image/jpeg", ".bmp": "image/bmp", ".tif": "image/tiff",
               ".pbm": "image/x-portable-bitmap", ".gif": "image/gif",
               ".ras": "image/x-sun-raster", ".webp": "image/webp", ".png": "image/png",
-              ".pfm": "image/x-portable-floatmap", ".hdr": "image/vnd.radiance"}
+              ".pfm": "image/x-portable-floatmap", ".hdr": "image/vnd.radiance",
+              ".jp2": "image/jp2", ".j2k": "image/x-jp2-codestream"}
     direct = predictor(thr)
     base, httpd, batcher = _serve(predictor(thr), max_batch=4,
                                   max_delay_ms=SERVE_MAX_DELAY_MS, default_threshold=thr)

@@ -2,10 +2,11 @@
 ``tdnet/data/image.py``.
 
 :func:`read_image_bgr` decodes PNG (APNG too), JPEG, BMP, TIFF, PNM (PFM
-too), GIF, Sun raster and WebP pages with the port's own decoders
-(``data/png.py``, ``jpeg.py``, ``bmp.py``, ``tiff.py`` with
+too), GIF, Sun raster, WebP and JPEG 2000 pages with the port's own
+decoders (``data/png.py``, ``jpeg.py``, ``bmp.py``, ``tiff.py`` with
 ``cielab.py``, ``pnm.py``, ``gif.py``, ``sunras.py``, ``webp.py`` with
-``vp8.py`` and ``vp8l.py``: zlib and numpy), byte for byte as the
+``vp8.py`` and ``vp8l.py``, ``jp2.py`` with ``j2k.py``, ``j2k_t1.py`` and
+``j2k_dwt.py``: zlib and numpy), byte for byte as the
 reference's PIL ``convert("RGB")`` does, and reads ``.npy`` arrays;
 :func:`decode_image` also reads Radiance HDR (``hdr.py``) on the serve
 route, as ``cv2.imdecode`` does. The format is sniffed from the content, as PIL does,
@@ -28,7 +29,7 @@ from typing import Tuple
 
 import numpy as np
 
-from tdnet_torch.data import bmp, gif, hdr, jpeg, png, pnm, sunras, tiff, webp
+from tdnet_torch.data import bmp, gif, hdr, jp2, jpeg, png, pnm, sunras, tiff, webp
 
 __all__ = [
     "CAFFE_MEAN_BGR",
@@ -46,12 +47,13 @@ __all__ = [
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], dtype=np.float32)
 
 
-READS = "; ".join(m.READS for m in (png, jpeg, bmp, tiff, pnm, gif, sunras, webp, hdr))
+READS = "; ".join(m.READS for m in (png, jpeg, bmp, tiff, pnm, gif, sunras, webp, jp2,
+                                    hdr))
 
 
 def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
-    """PNG, JPEG, BMP, TIFF, PNM, GIF, Sun raster, WebP or Radiance HDR
-    bytes, told apart by their first bytes -> (H, W, 3) uint8 RGB by the
+    """PNG, JPEG, BMP, TIFF, PNM, GIF, Sun raster, WebP, JPEG 2000 or
+    Radiance HDR bytes, told apart by their first bytes -> (H, W, 3) uint8 RGB by the
     rule of ``route``: ``"pil"`` (files: PIL's ``convert("RGB")``) or
     ``"cv2"`` (serve bodies: ``cv2.imdecode(..., IMREAD_COLOR)``, which
     turns a JPEG, PNG or WebP by its EXIF orientation; both turn a TIFF by
@@ -73,6 +75,8 @@ def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
         return sunras.decode_sunras(data, route=route)
     if webp.is_webp(data) or (route == "cv2" and webp.is_bare_bitstream(data)):
         return webp.decode_webp(data, route=route)
+    if jp2.is_jpeg2000(data):
+        return jp2.decode_jpeg2000(data, route=route)
     if hdr.is_hdr(data):
         return hdr.decode_hdr(data, route=route)
     raise ValueError(f"unsupported image format; the port reads {READS}")
@@ -131,6 +135,8 @@ def image_size(path):
             return sunras.sunras_size(head)
         if webp.is_webp(head):
             return webp.webp_size(head + f.read())
+        if jp2.is_jpeg2000(head):
+            return jp2.jpeg2000_size(head + f.read())
         if hdr.is_hdr(head):
             raise ValueError(f"{path}: Radiance HDR: PIL cannot identify it")
     raise ValueError(f"{path}: unsupported image format; the port reads {READS}")

@@ -38,7 +38,20 @@ The routes part where their decoders do:
   an 8-bit one, PIL keeps the high byte of each entry as for any other.
 - Uncompressed YCbCr: PIL reads the bytes as ``RGBX`` unconverted, strips
   and tiles, and raises where that runs past the end of the file
-  (:func:`_pil_raw_ycbcr`).
+  (:func:`_pil_raw`).
+- Uncompressed 16-bit samples in planes: PIL reads each plane's bytes as
+  8-bit samples, a byte a pixel (:func:`_pil_planar16`), and refuses gray,
+  gray with alpha, associated alpha and L*a*b* so stored.
+- Uncompressed tiles on the cv2 route: libtiff refuses a tile whose byte
+  count, rounded up to a multiple of 1024, is not the tile's size, and
+  reads a short one that passes as zero samples (:func:`_cv2_raw_tile`);
+  a gray tile of 16-bit samples or with alpha, clipped at the right edge,
+  is read with libtiff's skew (:func:`_cv2_gray_skew`).
+- Gray with extra samples: PIL reads only 8-bit min-is-black with
+  unassociated alpha (``LA``; not uncompressed in planes). cv2 reads them
+  all: chunky, libtiff ignores the alpha (associated or not); in planes it
+  reads them as RGB (no min-is-white inversion, 16 bits rounded to 8, an
+  unassociated alpha premultiplied).
 - CIE L*a*b* (photometric 8, a* and b* signed): PIL reads 3 8-bit samples
   in any layout and converts them through LittleCMS (Lab D50 -> sRGB);
   cv2 reads 3 chunky samples of 8 or 16 bits through libtiff's CIELab
@@ -408,12 +421,40 @@ def _fax(raw: bytes, width: int, rows: int, g4: bool, options: int, lsb_first: b
 # --- layout
 
 
+def _tile_bytes(cw: int, cr: int, spp: int, bits: int, sub) -> int:
+    """libtiff's ``TIFFTileSize`` of an uncompressed tile (one plane's when
+    planar): whole rows of packed samples, or YCbCr data units."""
+    if sub != (1, 1):
+        return -(-cw // sub[0]) * -(-cr // sub[1]) * (sub[0] * sub[1] + 2)
+    return cr * ((cw * spp * bits + 7) // 8)
+
+
+def _cv2_raw_tile(data: bytes, off: int, count: int, size: int) -> bytes:
+    """An uncompressed tile as libtiff reads it for cv2: a byte count that,
+    rounded up to a multiple of 1024, is not the tile's size is refused
+    ("Invalid tile byte count"); a short one reads the whole tile as zero
+    samples (``DumpModeDecode`` fails, the tile buffer stays cleared)."""
+    if -(-count // 1024) * 1024 != size:
+        raise ValueError(f"uncompressed TIFF tile of {count} bytes, {size} expected: "
+                         "libtiff (cv2) refuses a count that rounded up to 1024 bytes is "
+                         "not the tile's size (Invalid tile byte count)")
+    if off + count > len(data):
+        raise ValueError("truncated TIFF: a strip or tile lies past the end of the file")
+    return data[off:off + size] if count == size else bytes(size)
+
+
 def _chunk(data: bytes, fields, compression: int, index: int, offsets, counts,
-                 cw: int, cr: int, spp: int, bits: int, end: str, sub=(1, 1), visible=0):
+                 cw: int, cr: int, spp: int, bits: int, end: str, sub=(1, 1), visible=0,
+                 cv2_tile=False):
     """One strip or tile, decompressed -> (cr, cw, spp) samples; YCbCr
-    subsampled by ``sub`` (h, v) comes back with its chroma replicated."""
+    subsampled by ``sub`` (h, v) comes back with its chroma replicated.
+    ``cv2_tile``: an uncompressed tile read by the cv2 route's rule
+    (:func:`_cv2_raw_tile`)."""
     off, count = offsets[index], counts[index]
-    raw = data[off:off + count]
+    if cv2_tile and compression == 1:
+        raw = _cv2_raw_tile(data, off, count, _tile_bytes(cw, cr, spp, bits, sub))
+    else:
+        raw = data[off:off + count]
     if len(raw) < count:
         raise ValueError("truncated TIFF: a strip or tile lies past the end of the file")
     fill_lsb = _one(fields, _FILL_ORDER, 1) == 2
@@ -565,18 +606,19 @@ def _ycbcr_rgb(ycc: np.ndarray, fields) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-def _pil_raw_ycbcr(data: bytes, fields, width: int, height: int) -> np.ndarray:
-    """PIL's reading of an uncompressed YCbCr page: ``TiffImagePlugin``
-    gives it the raw mode ``RGBX`` (meant for libtiff's RGBA output), so
-    its raw decoder takes 4 bytes a pixel from each strip's or tile's
-    offset on, the bytes as R, G and B, with no subsampling and no
-    conversion (planar pages: each plane as R, G, B at a byte a pixel),
-    and fails ("image file is truncated") where that runs past the end of
-    the file. A tile that reaches past the page's right edge is read with
-    rows ``width * 3`` bytes apart (the stride PIL works out from the
-    samples' 24 bits), which fails where a row's bytes are more than that.
-    ``ImageFile.load`` decodes the strips or tiles in the order of their
-    offsets, one covering the whole page from its last offset only."""
+def _pil_raw(data: bytes, fields, width: int, height: int, bands: int, what: str
+             ) -> np.ndarray:
+    """PIL's raw decoder over the strips or tiles of an uncompressed page
+    whose raw mode is a byte a sample (or ``RGBX``): 4 bytes a pixel from
+    each chunky strip's or tile's offset on, the first three kept; a planar
+    page's layer k read at a byte a pixel as band k of ``bands``. It fails
+    ("image file is truncated") where that runs past the end of the file.
+    A tile that reaches past the page's right edge is read with rows
+    ``tile width * (sum of BitsPerSample) / 8`` bytes apart (divided by the
+    sample count when planar), which fails where a row's bytes are more
+    than that; every other strip or tile with rows packed at its width.
+    ``ImageFile.load`` decodes them in the order of their offsets, one
+    covering the whole page from its last offset only."""
     planar = _one(fields, _PLANAR, 1)
     if _TILE_WIDTH in fields:
         w, h = _one(fields, _TILE_WIDTH), _one(fields, _TILE_LENGTH)
@@ -599,20 +641,20 @@ def _pil_raw_ycbcr(data: bytes, fields, width: int, height: int) -> np.ndarray:
             if y >= height:
                 y, layer = 0, layer + 1
     tiles.sort(key=lambda t: t[0])
-    out = np.zeros((height, width, 3), np.uint8)
+    out = np.zeros((height, width, bands), np.uint8)
     for offset, x0, y0, x1, y1, layer, stride in tiles:
-        if planar == 2 and layer >= 3:
+        if planar == 2 and layer >= bands:
             continue
         px = 4 if planar != 2 else 1
         row = (x1 - x0) * px
         step = stride or row
         if step < row:
-            raise ValueError("uncompressed YCbCr TIFF: PIL reads a tile past the right edge "
-                             f"with rows {step} bytes apart, under their {row} (decoder error)")
+            raise ValueError(f"{what}: PIL reads a tile past the right edge with rows "
+                             f"{step} bytes apart, under their {row} (decoder error)")
         n = (y1 - y0 - 1) * step + row
         if offset + n > len(data):
-            raise ValueError("uncompressed YCbCr TIFF: PIL reads it as RGBX, 4 bytes a "
-                             "pixel, past the end of the file (image file is truncated)")
+            raise ValueError(f"{what}: PIL reads it at {px} byte{'s' * (px > 1)} a pixel "
+                             "past the end of the file (image file is truncated)")
         rows = np.lib.stride_tricks.as_strided(
             np.frombuffer(data, np.uint8, n, offset), (y1 - y0, row), (step, 1))
         rows = rows.reshape(y1 - y0, x1 - x0, px)
@@ -621,6 +663,20 @@ def _pil_raw_ycbcr(data: bytes, fields, width: int, height: int) -> np.ndarray:
         else:
             out[y0:y1, x0:x1, layer] = rows[:, :, 0]
     return out
+
+
+def _pil_planar16(data: bytes, fields, width: int, height: int) -> np.ndarray:
+    """PIL's reading of uncompressed 16-bit samples in planes: each plane's
+    raw mode is one letter of the chunky raw mode (``"RGB;16L"[k]``), so
+    its bytes are read as 8-bit samples (:func:`_pil_raw`), a byte a pixel,
+    and the page converts as an 8-bit one. Gray planes have no such raw
+    mode, and PIL cannot identify gray with alpha at 16 bits."""
+    photometric, spp = _one(fields, _PHOTOMETRIC, 1), _one(fields, _SAMPLES, 1)
+    extra = int(fields.get(_EXTRA, (0,))[0]) if spp > _BASE[photometric] else 0
+    if photometric not in (2, 5) or extra == 1:
+        raise ValueError(f"uncompressed 16-bit {_PHOTOMETRICS.get(photometric, '')} TIFF in "
+                         "planes: PIL has no raw mode for it, or cannot identify it")
+    return _pil_raw(data, fields, width, height, spp, "uncompressed 16-bit TIFF in planes")
 
 
 def _jpeg_chunk(raw: bytes, fields, cw: int, cr: int, spp: int) -> np.ndarray:
@@ -637,9 +693,9 @@ def _jpeg_chunk(raw: bytes, fields, cw: int, cr: int, spp: int) -> np.ndarray:
     return out
 
 
-def _samples(data: bytes):
+def _samples(data: bytes, route: str = "pil"):
     """The page's (H, W, samples) array (uint8, or uint16 at 16 bits) and
-    its fields."""
+    its fields, its uncompressed tiles read by ``route``'s rule."""
     end, fields = _ifd(data)
     width, height = _one(fields, _WIDTH), _one(fields, _HEIGHT)
     if width <= 0 or height <= 0:
@@ -702,11 +758,31 @@ def _samples(data: bytes):
                 rows = ch if tiled else min(ch, height - y0)
                 chunk = _chunk(data, fields, compression, (p * down + ty) * across + tx,
                                offsets, counts, cw, rows, chunk_spp, bits, end, sub,
-                               min(cw, width - x0))
+                               min(cw, width - x0), cv2_tile=tiled and route == "cv2")
                 h, w = min(rows, height - y0), min(cw, width - x0)
+                if (route == "cv2" and tiled and photometric in (0, 1) and w < cw
+                        and planes == 1 and chunk.itemsize * chunk_spp > 1):
+                    chunk = _cv2_gray_skew(chunk, w, h)
                 sl = slice(p, p + 1) if planar == 2 else slice(None)
                 image[y0:y0 + h, x0:x0 + w, sl] = chunk[:h, :w]
     return image, fields, bits, photometric
+
+
+def _cv2_gray_skew(chunk: np.ndarray, w: int, h: int) -> np.ndarray:
+    """A gray tile of 16-bit samples, or with extra samples, clipped at the
+    page's right edge, as libtiff's ``put16bitbwtile``/``putagreytile``
+    reads it for cv2: after each row of ``w`` pixels it skips ``cw - w``
+    bytes, not pixels, so row k starts ``k * (size * spp * w + cw - w)``
+    bytes into the tile (the rows below the first read the wrong
+    samples)."""
+    cr, cw, spp = chunk.shape
+    item = chunk.dtype.newbyteorder("<")
+    buf = chunk.astype(item).tobytes()
+    out = chunk.copy()
+    for k in range(1, h):
+        start = k * (chunk.itemsize * spp * w + cw - w)
+        out[k, :w] = np.frombuffer(buf, item, w * spp, start).reshape(w, spp)
+    return out
 
 
 def _ycbcr_layout(fields, bits: int, spp: int, planar: int):
@@ -784,7 +860,24 @@ def _rgb(image: np.ndarray, fields, bits: int, photometric: int, route: str) -> 
     if route == "cv2" and (bits == 2 or (bits == 4 and photometric != 3)):
         raise ValueError(f"{_PHOTOMETRICS[photometric]} TIFF at {bits} bits: cv2 reads "
                          "1, 8 and 16 bits (4 in a palette) only")
-    if extra == 1 and (photometric != 2 or bits != 8):
+    if route == "pil" and photometric in (0, 1) and spp > 1:
+        if not (photometric == 1 and bits == 8 and spp == 2 and extra == 2):
+            raise ValueError(f"{_PHOTOMETRICS[photometric]} TIFF of {spp} samples at {bits} "
+                             "bits: PIL reads gray with extra samples only as 8-bit "
+                             "min-is-black with unassociated alpha (LA)")
+        if _one(fields, _PLANAR, 1) == 2 and _one(fields, _COMPRESSION, 1) == 1:
+            raise ValueError("uncompressed LA TIFF in planes: PIL has no raw mode for it")
+    if (route == "cv2" and photometric in (0, 1) and spp > 1 and bits in (8, 16)
+            and _one(fields, _PLANAR, 1) == 2):
+        # libtiff's RGBA interface reads gray planes as RGB (gtTileSeparate,
+        # putRGB*separate*): no min-is-white inversion, 16 bits rounded to 8,
+        # unassociated alpha premultiplied
+        g = _eight(image[:, :, 0], bits, route).astype(np.int32)
+        if extra == 2:
+            g = (g * _eight(image[:, :, 1], bits, route).astype(np.int32) + 127) // 255
+        return np.repeat(g.astype(np.uint8)[:, :, None], 3, axis=2)
+    if extra == 1 and (photometric != 2 or bits != 8) and not (
+            route == "cv2" and photometric in (0, 1)):  # libtiff's gray ignores alpha
         raise ValueError("TIFF with associated alpha is read in 8-bit RGB only")
     if photometric in (0, 1):
         g = _gray8(image[:, :, 0], bits, route)
@@ -831,9 +924,15 @@ def decode_tiff(data: bytes, route: str = "pil") -> np.ndarray:
     if (route == "pil" and _one(fields, _PHOTOMETRIC, 1) == 6
             and _one(fields, _COMPRESSION, 1) == 1):
         _samples(data)  # what the port refuses, it refuses on both routes
-        rgb = _pil_raw_ycbcr(data, fields, _one(fields, _WIDTH), _one(fields, _HEIGHT))
+        rgb = _pil_raw(data, fields, _one(fields, _WIDTH), _one(fields, _HEIGHT), 3,
+                       "uncompressed YCbCr TIFF")
+    elif (route == "pil" and _one(fields, _COMPRESSION, 1) == 1 and _one(fields, _PLANAR, 1) == 2
+          and max(fields.get(_BITS, (1,))) == 16):
+        image, fields, _, photometric = _samples(data)
+        raw = _pil_planar16(data, fields, image.shape[1], image.shape[0])
+        rgb = _rgb(raw, fields, 8, photometric, route)
     else:
-        image, fields, bits, photometric = _samples(data)
+        image, fields, bits, photometric = _samples(data, route)
         if photometric == 6 and _one(fields, _COMPRESSION, 1) != 7:
             rgb = _ycbcr_rgb(image, fields)
         else:

@@ -1070,8 +1070,8 @@ def test_bmp_cases_that_raise():
 def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
     """read_image_bgr decodes by content whatever the extension (a PNG
     named .jpg, a JPEG named .png), as PIL does; image_size reads each
-    format's header as PIL's .size; TIFF, GIF and WebP pages read;
-    formats the port does not read yet (JPEG 2000) raise, naming what it
+    format's header as PIL's .size; TIFF, GIF, WebP and JPEG 2000 pages
+    read; formats the port does not read yet (AVIF) raise, naming what it
     reads."""
     img = _image((21, 34), 11)
     files = {"png.jpg": None, "jpeg.png": _pil_jpeg(img, quality=85),
@@ -1084,10 +1084,14 @@ def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
         got = read_image_bgr(tmp_path / name)
         assert got.dtype == np.float32 and np.array_equal(got, want), name
         assert image_size(tmp_path / name) == Image.open(tmp_path / name).size == (34, 21)
-    Image.fromarray(img).save(tmp_path / "page.jp2")
+    Image.fromarray(img).save(tmp_path / "page.avif")
     for fn in (read_image_bgr, image_size):
         with pytest.raises(ValueError, match="WebP"):
-            fn(tmp_path / "page.jp2")
+            fn(tmp_path / "page.avif")
+    Image.fromarray(img).save(tmp_path / "page.jp2")  # JPEG 2000: data/jp2.py
+    want = np.asarray(Image.open(tmp_path / "page.jp2").convert("RGB"))[:, :, ::-1]
+    np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.jp2"), want)
+    assert image_size(tmp_path / "page.jp2") == (34, 21)
     Image.fromarray(img).save(tmp_path / "page.webp")  # WebP: data/webp.py
     want = np.asarray(Image.open(tmp_path / "page.webp").convert("RGB"))[:, :, ::-1]
     np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.webp"), want)
@@ -1107,8 +1111,9 @@ def test_no_fallback_decoder(tmp_path):
     still decodes a JPEG (sequential, progressive, arithmetic-coded and
     lossless), a BMP (raw and RLE8), TIFF pages (LZW with a predictor,
     CCITT G4, JPEG, YCbCr, CIE L*a*b*), a PPM, a gray PFM, a GIF, a
-    byte-encoded Sun raster, WebP pages (lossy, lossless, lossy with alpha)
-    and an APNG, to the pixels PIL gives."""
+    byte-encoded Sun raster, WebP pages (lossy, lossless, lossy with alpha),
+    an APNG and JPEG 2000 pages (a 9/7 JP2 file and a 5/3 codestream), to
+    the pixels PIL gives."""
     img = _image((30, 41), 12)
     page = Image.fromarray(img)
     rle = bytes([3, 1, 3, 2, 0, 0, 2, 3, 4, 0, 0, 0, 6, 1, 0, 0, 0, 1])
@@ -1151,6 +1156,11 @@ def test_no_fallback_decoder(tmp_path):
     cmap = bytes(range(0, 256, 16)) * 3
     files["s.ras"] = struct.pack(">8I", 0x59A66A95, 3, 2, 8, 7, 2, 1, 48) + cmap + bytes(
         [0x80, 2, 7, 9, 0x80, 0, 4])
+    for name, kw in (("i.jp2", dict(irreversible=True, quality_layers=[20])),
+                     ("r.j2k", dict(no_jp2=True))):
+        buf = io.BytesIO()
+        page.save(buf, "JPEG2000", **kw)
+        files[name] = buf.getvalue()
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
         np.save(tmp_path / (name + ".npy"), _pil(data)[:, :, ::-1])

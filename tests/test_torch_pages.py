@@ -1,9 +1,9 @@
 """The page formats of ``data/jpeg.py``, ``data/bmp.py``, ``data/tiff.py``,
 ``data/pnm.py`` and ``data/gif.py`` through the whole slice on the CPU: a
 CSV of a progressive JPEG, a CMYK JPEG, an RLE8 BMP, two TIFFs (CCITT G4,
-LZW with a predictor), a binary PPM, a GIF, a YCbCr LZW TIFF and an
-arithmetic-coded JPEG through the reference's and the port's
-``BatchLoader`` (equal batches), then the port's ``Predictor`` and the
+LZW with a predictor), a binary PPM, a GIF, a YCbCr LZW TIFF, an
+arithmetic-coded JPEG and a JPEG 2000 file (9/7, two layers) through the
+reference's and the port's ``BatchLoader`` (equal batches), then the port's ``Predictor`` and the
 reference's on the decoded pages with the variables
 ``tdnet_torch/weights.py`` carries over (equal detections, at
 ``tests/test_torch_predictor.py``'s tolerances); and the golden full-size
@@ -75,10 +75,10 @@ def _save(im: Image.Image, fmt: str, **kw) -> bytes:
 
 @pytest.fixture(scope="module")
 def csv_pages(tmp_path_factory):
-    """annotations.csv and classes.csv over nine pages, one a format."""
+    """annotations.csv and classes.csv over ten pages, one a format."""
     root = tmp_path_factory.mktemp("pages")
     shapes = [(64, 96), (96, 64), (70, 100), (64, 96), (100, 70), (64, 96), (96, 64),
-              (70, 100), (64, 96)]
+              (70, 100), (64, 96), (96, 64)]
     makers = {
         "progressive.jpg": lambda im: _save(im, "JPEG", quality=90, progressive=True),
         "cmyk.jpg": lambda im: _save(im.convert("CMYK"), "JPEG", quality=90),
@@ -90,6 +90,7 @@ def csv_pages(tmp_path_factory):
         "page.gif": lambda im: _save(im.convert("P", palette=Image.Palette.ADAPTIVE), "GIF"),
         "ycc_lzw.tif": lambda im: _save(im.convert("YCbCr"), "TIFF", compression="tiff_lzw"),
         "arith.jpg": lambda im: transcode(_save(im, "JPEG", quality=85), progressive=True),
+        "page.jp2": lambda im: _save(im, "JPEG2000", irreversible=True, quality_layers=[20, 5]),
     }
     rows = []
     for i, ((name, make), shape) in enumerate(zip(makers.items(), shapes)):
@@ -190,7 +191,8 @@ def test_predictor_over_the_pages_matches_reference(csv_pages):
 # chip_smoke.py's pages phase checks them at full size
 SLOW_PAGES = ("arith_seq.jpg", "arith_prog.jpg", "arith_big.jpg", "lossless.jpg",
               "vp8l_rgb.webp", "vp8_q80.webp", "vp8x_alpha.webp", "vp8x_exif6.webp",
-              "vp8_simple4.webp", "apng_default.png")
+              "vp8_simple4.webp", "apng_default.png", "j2k_97.jp2", "j2k_rpcl.j2k",
+              "j2k_cv2.jp2", "j2k_gray16.jp2")
 
 
 def test_golden_pages_equal_their_digests():
@@ -200,13 +202,14 @@ def test_golden_pages_equal_their_digests():
     raster, the gray PFM and the 12-bit JPEG on cv2's; the HDR page and
     the 12-bit JPEG on PIL's), and their sizes read from the headers (or
     ``image_size`` raising where PIL cannot open the file). The file lists
-    all 28 pages; this test decodes the cheap ones, the eight of earlier
+    all 32 pages; this test decodes the cheap ones, the eight of earlier
     slices, ycc_lzw.tif, page.pbm, page.gif, rle.ras, vp8l_palette.webp,
     exif6.png, lab.tif, jpeg12.jpg, gray.pfm and page.hdr, and leaves the
-    arithmetic-coded and lossless JPEGs, the other WebP pages and the APNG
-    (SLOW_PAGES) to the card's pages phase, which decodes them all."""
+    arithmetic-coded and lossless JPEGs, the other WebP pages, the APNG and
+    the four JPEG 2000 pages (SLOW_PAGES) to the card's pages phase, which
+    decodes them all."""
     digests = json.loads((GOLDEN / "digests.json").read_text())
-    assert len(digests) == 28
+    assert len(digests) == 32
     for name, info in digests.items():
         if info["size"] is None:
             with pytest.raises(ValueError):

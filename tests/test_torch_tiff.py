@@ -149,10 +149,11 @@ def _ycbcr_units(block: np.ndarray, h: int, v: int) -> bytes:
 
 def _tiff(samples, bits=8, photometric=2, *, compression=1, big_endian=False, tile=None,
           planar=1, rows_per_strip=None, predictor=1, fill_order=1, tags=None,
-          subsampling=None) -> bytes:
+          subsampling=None, count_delta=0) -> bytes:
     """A one-page TIFF of (H, W, spp) samples. ``tile``: (width, length);
     ``tags``: more fields, tag -> (type, values); ``subsampling``: (h, v)
-    of YCbCr samples, written as data units (``YCbCrSubsampling``)."""
+    of YCbCr samples, written as data units (``YCbCrSubsampling``);
+    ``count_delta``: added to every strip or tile byte count written."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[:, :, None]
@@ -208,7 +209,7 @@ def _tiff(samples, bits=8, photometric=2, *, compression=1, big_endian=False, ti
         offsets.append(len(body))
         body += c + bytes(len(c) & 1)
     fields[324 if tile else 273] = (4, offsets)
-    fields[325 if tile else 279] = (4, [len(c) for c in chunks])
+    fields[325 if tile else 279] = (4, [len(c) + count_delta for c in chunks])
     entries = []
     for tag in sorted(fields):
         kind, values = fields[tag]
@@ -653,3 +654,111 @@ def test_tiff_uncompressed_ycbcr_tiles_on_the_pil_route(shape):
                     tiff.decode_tiff(data, route="pil")
                 continue
             np.testing.assert_array_equal(tiff.decode_tiff(data, route="pil"), want)
+
+
+C12_TILES = [(t, bits, spp, planar) for t in (16, 32, 48, 64) for bits in (8, 16)
+             for spp, planar in ((1, 1), (3, 1), (3, 2), (4, 1), (4, 2))]
+
+
+@pytest.mark.parametrize("tile,bits,spp,planar", C12_TILES,
+                         ids=lambda v: str(v))
+def test_tiff_uncompressed_tile_byte_counts_by_each_route(tile, bits, spp, planar):
+    """Uncompressed square tiles on a 40x70 page (the right and bottom
+    tiles clipped), each tile's byte count exact, one short and one long.
+    cv2 (libtiff 4.7) refuses a count that, rounded up to a multiple of
+    1024, is not the tile's size ("Invalid tile byte count"), and reads a
+    short one whose rounding passes as a tile of zero samples; its 16-bit
+    gray tiles clipped on the right read with libtiff's skew. The port's
+    cv2 route refuses exactly where cv2 returns None; PIL's route reads the
+    exact counts as before."""
+    rng = np.random.default_rng(tile * 7 + bits + spp * 3 + planar)
+    samples = rng.integers(0, 1 << bits, (40, 70, spp)).astype(np.int64)
+    photometric = 1 if spp == 1 else 2
+    tags = {338: (3, [2])} if spp == 4 else None
+    for delta in (0, -1, 1):
+        data = _tiff(samples, bits, photometric, tile=(tile, tile), planar=planar, tags=tags,
+                     count_delta=delta)
+        want = _cv2(data)
+        if want is None:
+            with pytest.raises(ValueError, match="Invalid tile byte count"):
+                tiff.decode_tiff(data, route="cv2")
+        else:
+            np.testing.assert_array_equal(tiff.decode_tiff(data, route="cv2"), want)
+        if delta == 0:
+            np.testing.assert_array_equal(tiff.decode_tiff(data, route="pil"), _pil(data))
+
+
+def test_tiff_c12_pages_in_16x16_tiles():
+    """The pages C12 was found on: 24x32 RGB and CIE L*a*b*, uncompressed in
+    16x16 tiles. cv2 refuses both (a 768-byte tile rounds to 1024); PIL
+    reads both; 16x16 LZW tiles read on both routes."""
+    rng = np.random.default_rng(12)
+    for photometric in (2, 8):
+        samples = rng.integers(0, 256, (24, 32, 3)).astype(np.int64)
+        data = _tiff(samples, 8, photometric, tile=(16, 16))
+        assert _cv2(data) is None
+        with pytest.raises(ValueError, match="Invalid tile byte count"):
+            tiff.decode_tiff(data, route="cv2")
+        np.testing.assert_array_equal(tiff.decode_tiff(data, route="pil"), _pil(data))
+        _assert_both_routes(_tiff(samples, 8, photometric, tile=(16, 16), compression=5))
+
+
+PLANAR16 = {  # name: (samples, photometric, more fields)
+    "gray": (1, 1, None), "white": (1, 0, None), "gray_alpha": (2, 1, {338: (3, [2])}),
+    "rgb": (3, 2, None), "rgba": (4, 2, {338: (3, [2])}),
+    "rgba_associated": (4, 2, {338: (3, [1])}), "cmyk": (4, 5, None), "lab": (3, 8, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLANAR16))
+def test_tiff_uncompressed_16_bit_planes_on_the_pil_route(case):
+    """Uncompressed 16-bit samples in planes, in tiles and in strips: PIL
+    gives each plane one letter of the chunky raw mode and reads its bytes
+    as 8-bit samples; it has no raw mode for gray or associated alpha and
+    cannot identify gray with alpha or L*a*b*. The port's pil route reads
+    and refuses as PIL does."""
+    spp, photometric, tags = PLANAR16[case]
+    rng = np.random.default_rng(len(case))
+    samples = rng.integers(0, 1 << 16, (40, 70, spp)).astype(np.int64)
+    for kw in (dict(tile=(32, 32)), dict(rows_per_strip=8)):
+        data = _tiff(samples, 16, photometric, planar=2, tags=tags, **kw)
+        try:
+            want = _pil(data)
+        except (OSError, ValueError):
+            with pytest.raises(ValueError):
+                tiff.decode_tiff(data, route="pil")
+            continue
+        np.testing.assert_array_equal(tiff.decode_tiff(data, route="pil"), want)
+
+
+GRAY_EXTRA = [(bits, photometric, extra) for bits in (8, 16) for photometric in (0, 1)
+              for extra in (0, 1, 2)]
+
+
+@pytest.mark.parametrize("bits,photometric,extra", GRAY_EXTRA, ids=lambda v: str(v))
+def test_tiff_gray_with_an_extra_sample_by_each_route(bits, photometric, extra):
+    """Gray with one extra sample (unspecified, associated or unassociated
+    alpha), chunky and planar, in strips and in 32x32 tiles (a 40x70 page:
+    the right tiles clipped), uncompressed and LZW. PIL reads only 8-bit
+    min-is-black with unassociated alpha (``LA``; not uncompressed in
+    planes). cv2 reads them all through libtiff's RGBA interface: chunky,
+    the alpha ignored and the clipped tiles read with its row skew; in
+    planes, as RGB (no min-is-white inversion, 16 bits rounded to 8, an
+    unassociated alpha premultiplied)."""
+    rng = np.random.default_rng(bits + 3 * photometric + extra)
+    samples = rng.integers(0, 1 << bits, (40, 70, 2)).astype(np.int64)
+    for planar in (1, 2):
+        for layout in (dict(rows_per_strip=8), dict(tile=(32, 32))):
+            for compression in (1, 5):
+                data = _tiff(samples, bits, photometric, tags={338: (3, [extra])},
+                             planar=planar, compression=compression, **layout)
+                for route, oracle in (("pil", _pil), ("cv2", _cv2)):
+                    try:
+                        want = oracle(data)
+                    except (OSError, ValueError):
+                        want = None
+                    if want is None:
+                        with pytest.raises(ValueError):
+                            tiff.decode_tiff(data, route=route)
+                    else:
+                        np.testing.assert_array_equal(tiff.decode_tiff(data, route=route), want)

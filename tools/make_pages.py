@@ -67,7 +67,20 @@ and six more from a third generator (seed 13):
   size (floats 0.25 above its gray levels): PIL reads it, cv2 returns one
   channel, which the serve route refuses;
 - ``page.hdr``: Radiance HDR, run-length scanlines (cv2's encoder, the
-  page / 255): cv2 reads it, PIL cannot identify it.
+  page / 255): cv2 reads it, PIL cannot identify it;
+
+and four JPEG 2000 pages from a fourth generator (seed 17):
+
+- ``j2k_97.jp2``: PIL's JP2, the irreversible 9/7 with ICT, three
+  quality layers at rates 40, 20 and 10 (code-blocks cut short by the
+  layers, reconstructed half-way);
+- ``j2k_rpcl.j2k``: PIL's raw codestream, reversible 5/3 with RCT, RPCL
+  progression, 512x512 tiles, 128x128 precincts and PLT markers;
+- ``j2k_cv2.jp2``: cv2's own JP2 writer (``IMWRITE_JPEG2000_COMPRESSION_X1000``
+  250);
+- ``j2k_gray16.jp2``: PIL's JP2 of the page at half size in 16-bit gray
+  (``I;16``, each gray level times 257): PIL clips it to 255, cv2 keeps
+  the high byte, so the routes part.
 
 Where a reference refuses a page, ``digests.json`` holds null for its
 digest and the reason under ``refused`` (PIL's exception, or cv2's None or
@@ -101,6 +114,7 @@ WEBP_SEED = 9  # the WebP pages' own generator: the pages above keep theirs
 # the APNG, EXIF PNG, Lab TIFF, 12-bit JPEG, PFM and HDR pages: the first
 # seed from 10 whose seven pages table_page draws
 SLICE20_SEED = 13
+J2K_SEED = 17  # the JPEG 2000 pages' own generator
 
 
 def pil_bytes(im: Image.Image, fmt: str, **kw) -> bytes:
@@ -233,6 +247,29 @@ def slice20_pages(pages) -> dict:
     }
 
 
+def j2k_pages(pages) -> dict:
+    """The four JPEG 2000 pages, drawn from their own generator and
+    appended to ``pages`` in the order of the files returned."""
+    rng = np.random.default_rng(J2K_SEED)
+    drawn = [table_page(rng, LANDSCAPE) for _ in range(4)]
+    drawn[3] = (np.ascontiguousarray(drawn[3][0][::2, ::2]),
+                [[v // 2 for v in b] for b in drawn[3][1]])
+    pages += drawn
+    page = [Image.fromarray(p) for p, _ in drawn]
+    ok, cv2_jp2 = cv2.imencode(".jp2", drawn[2][0][:, :, ::-1],
+                               [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 250])
+    assert ok
+    gray16 = np.asarray(page[3].convert("L")).astype(np.uint16) * 257
+    return {
+        "j2k_97.jp2": pil_bytes(page[0], "JPEG2000", irreversible=True, quality_mode="rates",
+                                quality_layers=[40, 20, 10]),
+        "j2k_rpcl.j2k": pil_bytes(page[1], "JPEG2000", no_jp2=True, progression="RPCL",
+                                  tile_size=(512, 512), precinct_size=(128, 128), plt=True),
+        "j2k_cv2.jp2": cv2_jp2.tobytes(),
+        "j2k_gray16.jp2": pil_bytes(Image.fromarray(gray16), "JPEG2000"),
+    }
+
+
 def reference_decodes(data: bytes):
     """(PIL's RGB decode or None, cv2's BGR decode or None, the refusals)."""
     refused = {}
@@ -281,6 +318,7 @@ def main():
     }
     files.update(webp_pages(pages))
     files.update(slice20_pages(pages))
+    files.update(j2k_pages(pages))
     digests = {}
     for (name, data), (_, boxes) in zip(files.items(), pages):
         with open(os.path.join(OUT, name), "wb") as f:
