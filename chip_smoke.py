@@ -3211,8 +3211,12 @@ def phase_pages(dev):
     the routes part; the pages only PIL reads: 32-bit float and integer
     gray TIFF, an RLE colour-mapped top-down TGA, an 8-bit PCX with its
     palette, a 16-bit RLE SGI, an ICO of a PNG and a BMP frame, BC7 and
-    BC6H DDS, QOI and IM with a Lut, each refused on the body route)
-    decoded by both
+    BC6H DDS, QOI and IM with a Lut; and the twenty of slice 23: a DIB, a
+    CUR, a DCX, a version-1 MSP, an XBM, a SPIDER page, an ICNS of a PNG
+    and an RLE icon, a DXT1 BLP2, a PackBits PSD, an XPM, a FITS page, a
+    GBR brush, a BC1 FTEX, a PIXAR page, a McIDAS area, an IMT page, an XV
+    thumbnail, a BRUN FLC, a Photo CD base image and an IPTC page; each
+    refused on the body route) decoded by both
     routes, each SHA-256 equal to the references' in ``digests.json``,
     each route a reference refuses raising (PIL's on the arithmetic page
     past its first 64 KiB, the 12-bit JPEG and the HDR page; cv2's on the
@@ -3346,7 +3350,9 @@ def phase_pages(dev):
               ".pfm": "image/x-portable-floatmap", ".hdr": "image/vnd.radiance",
               ".jp2": "image/jp2", ".j2k": "image/x-jp2-codestream", ".tga": "image/x-tga",
               ".pcx": "image/x-pcx", ".sgi": "image/sgi", ".ico": "image/vnd.microsoft.icon",
-              ".dds": "image/vnd-ms.dds", ".qoi": "image/qoi", ".im": "image/x-im"}
+              ".dds": "image/vnd-ms.dds", ".qoi": "image/qoi", ".im": "image/x-im",
+              ".dib": "image/bmp", ".psd": "image/vnd.adobe.photoshop", ".xbm": "image/x-xbitmap",
+              ".xpm": "image/x-xpixmap", ".fits": "image/fits", ".icns": "image/icns"}
     direct = predictor(thr)
     base, httpd, batcher = _serve(predictor(thr), max_batch=4,
                                   max_delay_ms=SERVE_MAX_DELAY_MS, default_threshold=thr)
@@ -3355,7 +3361,8 @@ def phase_pages(dev):
             c.reset()
         sync(dev)
         t0 = time.monotonic()
-        answers = [_post(base, files[n], ctypes[Path(n).suffix]) for n in names]
+        answers = [_post(base, files[n], ctypes.get(Path(n).suffix, "application/octet-stream"))
+                   for n in names]
         sync(dev)
         seconds["serve"] = time.monotonic() - t0
         launches["serve"] = {k: c.count for k, c in counters.items()}

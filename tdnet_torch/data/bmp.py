@@ -38,12 +38,17 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["SIGNATURE", "READS", "ROUTES", "decode_bmp", "bmp_size"]
+from tdnet_torch.data import plugins
+
+__all__ = ["SIGNATURE", "READS", "ROUTES", "decode_bmp", "bmp_size", "DIB_READS", "is_dib",
+           "decode_dib", "dib_size", "bitmap_as_bmp"]
 
 SIGNATURE = b"BM"
 READS = ("BMP (BI_RGB at 1, 4, 8, 16, 24 and 32 bits; BI_BITFIELDS at 16 and "
          "32 bits; BI_RLE8 and BI_RLE4)")
 ROUTES = ("pil", "cv2")
+DIB_READS = "DIB (a BMP without its file header, as PIL reads it)"
+DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
 
 _BI_RGB, _BI_RLE8, _BI_RLE4, _BI_BITFIELDS = 0, 1, 2, 3
 _MASKS_16 = {(0xF800, 0x07E0, 0x001F): (11, 5, 0, 5, 6, 5),
@@ -51,15 +56,17 @@ _MASKS_16 = {(0xF800, 0x07E0, 0x001F): (11, 5, 0, 5, 6, 5),
 _MASKS_32 = (0xFF0000, 0x00FF00, 0x0000FF)
 
 
-def _header(data: bytes):
+def _header(data: bytes, route: str = "pil"):
     """(width, height, top-down, bits, compression, colours used, header
-    size, pixel offset) of a BMP."""
+    size, pixel offset) of a BMP. PIL reads an OS/2 core header's width and
+    height unsigned (so never top-down)."""
     if not data.startswith(SIGNATURE) or len(data) < 26:
         raise ValueError(f"not a BMP file; this reader takes {READS}")
     (offset,) = struct.unpack("<I", data[10:14])
     (size,) = struct.unpack("<I", data[14:18])
     if size == 12:
-        width, height, _, bits = struct.unpack("<hhHH", data[18:26])
+        width, height, _, bits = struct.unpack("<HHHH" if route == "pil" else "<hhHH",
+                                               data[18:26])
         compression, colors = _BI_RGB, 0
     elif size in (40, 52, 56, 64, 108, 124) and len(data) >= 14 + 40:
         width, height, _, bits, compression, _, _, _, colors = struct.unpack(
@@ -222,7 +229,7 @@ def decode_bmp(data: bytes, route: str = "pil") -> np.ndarray:
     """BMP bytes -> (H, W, 3) uint8 RGB by the rule of ``route``."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
-    width, height, top_down, bits, compression, colors, size, offset = _header(data)
+    width, height, top_down, bits, compression, colors, size, offset = _header(data, route)
     if width <= 0 or height == 0:
         raise ValueError(f"bad BMP size {width}x{height}")
     if compression in (_BI_RLE8, _BI_RLE4):
@@ -238,7 +245,7 @@ def decode_bmp(data: bytes, route: str = "pil") -> np.ndarray:
         return _palette(data, size, bits, colors)[index if top_down else index[::-1]]
     if compression not in (_BI_RGB, _BI_BITFIELDS):
         raise ValueError(f"BMP compression {compression} is not read")
-    if compression == _BI_BITFIELDS and bits not in (16, 32):
+    if compression == _BI_BITFIELDS and bits not in (16, 32) and (route, bits) != ("pil", 24):
         raise ValueError(f"BI_BITFIELDS BMP at {bits} bits is not read")
     rows = _rows(data, offset, width, height, bits, top_down)
     if bits in (1, 4, 8):
@@ -253,8 +260,22 @@ def decode_bmp(data: bytes, route: str = "pil") -> np.ndarray:
             index = index[:, :width]
         return palette[index]
     if bits == 24:
+        if compression == _BI_BITFIELDS and struct.unpack("<III", data[54:66]) != _MASKS_32:
+            raise ValueError("BMP bitfields at 24 bits other than 8-8-8 are not read")
         return np.ascontiguousarray(rows[:, :3 * width].reshape(height, width, 3)[:, :, ::-1])
     if bits == 32:
+        if compression == _BI_BITFIELDS and route == "pil":
+            # PIL's rawmode for each layout it takes (its MASK_MODES): where
+            # the red, green and blue bytes lie in the pixel
+            masks = struct.unpack("<III", data[54:66]) + (
+                struct.unpack("<I", data[66:70]) if size >= 56 else (0,))
+            if masks not in _BITFIELDS_PIL[32]:
+                raise ValueError(f"BMP bitfields {tuple(map(hex, masks))} are not read")
+            order = [(m & -m).bit_length() // 8 if m else None for m in masks[:3]]
+            if masks == (0, 0, 0, 0):
+                order = [2, 1, 0]
+            px = rows[:, :4 * width].reshape(height, width, 4)
+            return np.ascontiguousarray(px[:, :, order])
         if compression == _BI_BITFIELDS:
             masks = struct.unpack("<III", data[54:66])
             if masks != _MASKS_32:
@@ -275,3 +296,112 @@ def decode_bmp(data: bytes, route: str = "pil") -> np.ndarray:
             out[:, :, ch] = v * 255 // ((1 << nbits) - 1) if route == "pil" else v << (8 - nbits)
         return out
     raise ValueError(f"BMP at {bits} bits is not read")
+
+
+# --- a bitmap without its file header (DIB, and the frames of CUR), as PIL's
+# BmpImageFile._bitmap reads one
+
+_BITFIELDS_PIL = {32: ((0xFF0000, 0xFF00, 0xFF, 0), (0xFF000000, 0xFF0000, 0xFF00, 0),
+                       (0xFF000000, 0xFF00, 0xFF, 0), (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+                       (0xFF, 0xFF00, 0xFF0000, 0xFF000000), (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+                       (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0, 0, 0, 0)),
+                  24: ((0xFF0000, 0xFF00, 0xFF),),
+                  16: ((0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F))}
+
+
+def bitmap_as_bmp(data: bytes, at: int = 0, halve: bool = False):
+    """PIL's ``BmpImageFile._bitmap`` of the bitmap header at ``at`` (no
+    file header): a BMP file of the same header, palette and pixels that
+    :func:`decode_bmp` reads, and PIL's (width, height); ``halve`` halves
+    the height as ``CurImagePlugin`` does. None where PIL's plugin passes
+    the file on (a short read of a 40-byte header's bit masks, an empty
+    size); ValueError where it ends ``Image.open`` (a short header, an
+    unknown header size, depth, compression or bit masks, a palette of
+    more than 65536 colours)."""
+    if len(data) < at + 4:
+        return None
+    (size,) = struct.unpack_from("<I", data, at)
+    if len(data) < at + size:
+        raise ValueError("BMP header runs past the end of the file: PIL fails on it "
+                         "(Truncated File Read)")
+    if size == 12:
+        width, height, _, bits = struct.unpack_from("<HHHH", data, at + 4)
+        compression, colors, pad, flip = _BI_RGB, 0, 3, False
+    elif size in DIB_HEADERS:
+        width, raw, _, bits, compression = struct.unpack_from("<IIHHI", data, at + 4)
+        (colors,) = struct.unpack_from("<I", data, at + 32)
+        flip = data[at + 11] == 0xFF
+        height = 2 ** 32 - raw if flip else raw
+        pad = 4
+    else:
+        raise ValueError(f"BMP header of {size} bytes: PIL fails on it (Unsupported BMP "
+                         "header type)")
+    pixels = at + size
+    if compression == _BI_BITFIELDS and size != 12:
+        if size == 40:
+            if len(data) < pixels + 12:
+                return None  # struct.error: PIL passes the file on
+            masks = struct.unpack_from("<III", data, pixels) + (0,)
+            pixels += 12
+        else:
+            masks = struct.unpack_from("<IIII", data, at + 40)
+            masks = masks if size >= 56 else masks[:3] + (0,)
+        if bits not in _BITFIELDS_PIL or (masks if bits == 32 else masks[:3]) not in \
+                _BITFIELDS_PIL[bits]:
+            raise ValueError("BMP bit masks PIL does not read (Unsupported BMP bitfields "
+                             "layout)")
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"BMP at {bits} bits: PIL fails on it (Unsupported BMP pixel depth)")
+    if compression not in (_BI_RGB, _BI_RLE8, _BI_RLE4, _BI_BITFIELDS):
+        raise ValueError(f"BMP compression {compression}: PIL fails on it")
+    if bits <= 8:
+        n = colors or 1 << bits
+        if n > 65536:
+            raise ValueError(f"BMP palette of {n} colours: PIL fails on it")
+        pixels = min(len(data), pixels + pad * n)
+    if halve:
+        height //= 2
+    if width == 0 or height == 0:
+        return None  # an empty size: PIL passes the file on
+    plugins.check_bomb(width, height, "BMP")
+    header = bytearray(data[at:pixels])
+    if size == 12:
+        header[6:8] = struct.pack("<H", height)
+    else:
+        header[8:12] = struct.pack("<i", -height if flip else height)
+    head = b"BM" + struct.pack("<IHHI", 14 + len(data) - at, 0, 0, 14 + pixels - at)
+    return head + bytes(header) + data[pixels:], (width, height)
+
+
+def is_dib(data: bytes) -> bool:
+    """PIL's DIB plugin takes it: a known header size in its first 4 bytes,
+    and what :func:`bitmap_as_bmp` does not pass on."""
+    if len(data) < 4 or struct.unpack_from("<I", data)[0] not in DIB_HEADERS:
+        return False
+    try:
+        return bitmap_as_bmp(data) is not None
+    except ValueError:
+        return True
+
+
+def _dib(data: bytes):
+    made = bitmap_as_bmp(bytes(data))
+    if made is None:
+        raise ValueError(f"not a DIB file PIL opens; this reader takes {DIB_READS}")
+    return made
+
+
+def dib_size(data: bytes) -> Tuple[int, int]:
+    """(width, height) of a DIB, as PIL's ``.size``."""
+    return _dib(data)[1]
+
+
+def decode_dib(data: bytes, route: str = "pil") -> np.ndarray:
+    """A DIB (a BMP without its file header) -> (H, W, 3) uint8 RGB, equal
+    to PIL's ``convert("RGB")``; the ``cv2`` route raises (OpenCV does not
+    read a DIB)."""
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "cv2":
+        raise ValueError("DIB: OpenCV cannot read it (cv2.imdecode returns None)")
+    return decode_bmp(_dib(data)[0], route="pil")

@@ -1,22 +1,25 @@
 """Host-side image reading and preprocessing in numpy, the counterpart of
 ``tdnet/data/image.py``.
 
-:func:`read_image_bgr` decodes PNG (APNG too), JPEG, BMP, TIFF, PNM (PFM
-too), GIF, Sun raster, WebP, JPEG 2000, TGA, PCX, SGI, ICO, DDS, QOI and
-IM pages with the port's own decoders (``data/png.py``, ``jpeg.py``,
-``bmp.py``, ``tiff.py`` with ``cielab.py``, ``pnm.py``, ``gif.py``,
-``sunras.py``, ``webp.py`` with ``vp8.py`` and ``vp8l.py``, ``jp2.py``
-with ``j2k.py``, ``j2k_t1.py`` and ``j2k_dwt.py``, ``tga.py``, ``pcx.py``,
-``sgi.py``, ``ico.py``, ``dds.py`` with ``bcn.py``, ``qoi.py``, ``im.py``:
-zlib and numpy), byte for byte as the reference's PIL ``convert("RGB")``
-does, and reads ``.npy`` arrays; :func:`decode_image` also reads Radiance
-HDR (``hdr.py``) on the serve route, as ``cv2.imdecode`` does. The format
-is told from the content, not from the file's extension: on the file
-route in the order PIL's ``Image.open`` offers a file to its plugins
-(``data/plugins.py``), so that a file with no magic number (TGA, IM) goes
-to the reader PIL would give it, and one that a plugin the port does not
-read would take is refused; on the serve route by cv2's signatures, where
-the formats only PIL reads are refused, each by name.
+:func:`read_image_bgr` decodes every format that PIL 12.1's ``Image.open``
+reads and ``convert("RGB")`` converts, with the port's own decoders (zlib,
+gzip and numpy), byte for byte as the reference's PIL does: PNG (APNG
+too), JPEG, BMP and DIB, TIFF (``cielab.py`` for Lab), PNM (PFM too), GIF,
+Sun raster, WebP (``vp8.py``, ``vp8l.py``), JPEG 2000 (``jp2.py`` with
+``j2k.py``, ``j2k_t1.py`` and ``j2k_dwt.py``), TGA, PCX and DCX, SGI, ICO,
+CUR, DDS (``bcn.py``), QOI, IM, MSP, XBM, SPIDER, ICNS, BLP, PSD, XPM,
+FITS, FLI, PCD (``photoycc.py``), IPTC and the small raw formats of
+``raw_plugins.py`` (GBR, FTEX, PIXAR, McIDAS, IMT, XV thumbnails); it
+also reads ``.npy`` arrays.
+:func:`decode_image` also reads Radiance HDR (``hdr.py``) on the serve
+route, as ``cv2.imdecode`` does. The format is told from the content, not
+from the file's extension: on the file route in the order PIL's
+``Image.open`` offers a file to its plugins (:data:`_PIL_ORDER`), so that
+a file with no magic number (TGA, IM, SPIDER, IMT, IPTC, PCD) goes to the
+reader PIL would give it, and one that a plugin the port does not read
+would take, or one that PIL opens and cannot load (``data/plugins.py``),
+is refused, naming the plugin; on the serve route by cv2's signatures,
+where the formats only PIL reads are refused, each by name.
 
 The GPU machine has neither cv2 nor PIL, so :func:`resize_image` is a numpy
 bilinear resize that reproduces cv2's ``INTER_LINEAR`` (the reference's
@@ -35,8 +38,9 @@ from typing import Tuple
 
 import numpy as np
 
-from tdnet_torch.data import (bmp, dds, gif, hdr, ico, im, jp2, jpeg, pcx, plugins, png, pnm,
-                               qoi, sgi, sunras, tga, tiff, webp)
+from tdnet_torch.data import (blp, bmp, cur, dds, fits, fli, gif, hdr, icns, ico, im, iptc, jp2,
+                               jpeg, msp, pcd, pcx, plugins, png, pnm, psd, qoi, raw_plugins, sgi,
+                               spider, sunras, tga, tiff, webp, xbm, xpm)
 
 __all__ = [
     "CAFFE_MEAN_BGR",
@@ -53,58 +57,106 @@ __all__ = [
 # caffe-mode BGR means (reference utils/image.py preprocess_image)
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], dtype=np.float32)
 
-
-READS = "; ".join(m.READS for m in (png, jpeg, bmp, tiff, pnm, gif, sunras, webp, jp2, tga,
-                                    pcx, sgi, ico, dds, qoi, im, hdr))
+# the formats only the file route reads
+_PIL_ONLY = (tga, pcx, sgi, ico, dds, qoi, im)
+_PIL_ONLY_READS = "; ".join([m.READS for m in _PIL_ONLY] + [
+    bmp.DIB_READS, cur.READS, pcx.DCX_READS, msp.READS, xbm.READS, spider.READS, icns.READS,
+    blp.READS, psd.READS, xpm.READS, fits.READS, raw_plugins.READS, fli.READS, pcd.READS,
+    iptc.READS])
+_BOTH = (png, jpeg, bmp, tiff, pnm, gif, sunras, webp, jp2)
+READS = "; ".join([m.READS for m in _BOTH] + [_PIL_ONLY_READS, hdr.READS])
 # what each route reads, for its messages: files all but Radiance HDR, serve
 # bodies all but the formats only PIL reads
-_FILE_READS = "; ".join(m.READS for m in (png, jpeg, bmp, tiff, pnm, gif, sunras, webp, jp2,
-                                          tga, pcx, sgi, ico, dds, qoi, im))
-_SERVE_READS = "; ".join(m.READS for m in (png, jpeg, bmp, tiff, pnm, gif, sunras, webp, jp2,
-                                           hdr))
+_FILE_READS = "; ".join([m.READS for m in _BOTH] + [_PIL_ONLY_READS])
+_SERVE_READS = "; ".join(m.READS for m in _BOTH + (hdr,))
 
-# The readers in the order of PIL's Image.open, each (takes the file, decode,
-# size), with the plugins the port does not read that PIL tries between them
-# (a group of data/plugins.py: (name, claims) pairs).
+
+def _raw(name: str):
+    return name, raw_plugins.opens(name), raw_plugins.decode(name), raw_plugins.size(name)
+
+
+# The readers in the order of PIL's Image.open, each (PIL's name for the
+# format, takes the file, decode, size), with the plugins the port does not
+# read that PIL tries between them (a group of data/plugins.py: (name,
+# claims, failure) triples).
 _PIL_ORDER = (
-    (lambda d: d.startswith(bmp.SIGNATURE), bmp.decode_bmp, bmp.bmp_size),
-    plugins.AFTER_BMP,
-    (lambda d: d.startswith(gif.SIGNATURES), gif.decode_gif, gif.gif_size),
-    (lambda d: d.startswith(jpeg.SIGNATURE), jpeg.decode_jpeg, jpeg.jpeg_size),
-    (lambda d: d[:2] in pnm.SIGNATURES, pnm.decode_pnm, pnm.pnm_size),
-    (lambda d: d.startswith(png.SIGNATURE), png.decode_png, png.png_size),
-    plugins.BEFORE_PCX,
-    (pcx.is_pcx, pcx.decode_pcx, pcx.pcx_size),
-    plugins.BEFORE_DDS,
-    (dds.is_dds, dds.decode_dds, dds.dds_size),
-    plugins.BEFORE_ICO,
-    (jp2.is_jpeg2000, jp2.decode_jpeg2000, jp2.jpeg2000_size),
-    (ico.is_ico, ico.decode_ico, ico.ico_size),
-    (im.is_im, im.decode_im, im.im_size),
-    plugins.BEFORE_QOI,
-    (lambda d: d.startswith(tiff.SIGNATURES), tiff.decode_tiff, tiff.tiff_size),
-    (qoi.is_qoi, qoi.decode_qoi, qoi.qoi_size),
-    (sgi.is_sgi, sgi.decode_sgi, sgi.sgi_size),
-    plugins.BEFORE_TGA,
-    (lambda d: d.startswith(sunras.SIGNATURE), sunras.decode_sunras, sunras.sunras_size),
-    (tga.is_tga, tga.decode_tga, tga.tga_size),
-    (webp.is_webp, webp.decode_webp, webp.webp_size),
+    ("BMP", lambda d: d.startswith(bmp.SIGNATURE), bmp.decode_bmp, bmp.bmp_size),
+    ("DIB", bmp.is_dib, bmp.decode_dib, bmp.dib_size),
+    ("GIF", lambda d: d.startswith(gif.SIGNATURES), gif.decode_gif, gif.gif_size),
+    ("JPEG", lambda d: d.startswith(jpeg.SIGNATURE), jpeg.decode_jpeg, jpeg.jpeg_size),
+    # PIL's PPM plugin takes P0-P6, Pf and Py: not PAM (P7) nor PF
+    ("PPM", lambda d: d[:1] == b"P" and d[1:2] != b"" and d[1:2] in b"0123456fy", pnm.decode_pnm,
+     pnm.pnm_size),
+    ("PNG", lambda d: d.startswith(png.SIGNATURE), png.decode_png, png.png_size),
+    plugins.AVIF,
+    ("BLP", blp.is_blp, blp.decode_blp, blp.blp_size),
+    plugins.BUFR,
+    ("CUR", cur.is_cur, cur.decode_cur, cur.cur_size),
+    ("PCX", pcx.is_pcx, pcx.decode_pcx, pcx.pcx_size),
+    ("DCX", pcx.is_dcx, pcx.decode_dcx, pcx.dcx_size),
+    ("DDS", dds.is_dds, dds.decode_dds, dds.dds_size),
+    plugins.EPS,
+    ("FITS", fits.is_fits, fits.decode_fits, fits.fits_size),
+    ("FLI", fli.is_fli, fli.decode_fli, fli.fli_size),
+    _raw("FTEX"),
+    _raw("GBR"),
+    plugins.GRIB_HDF5,
+    ("JPEG2000", jp2.is_jpeg2000, jp2.decode_jpeg2000, jp2.jpeg2000_size),
+    ("ICNS", icns.is_icns, icns.decode_icns, icns.icns_size),
+    ("ICO", ico.is_ico, ico.decode_ico, ico.ico_size),
+    ("IM", im.is_im, im.decode_im, im.im_size),
+    _raw("IMT"),
+    ("IPTC", iptc.is_iptc, iptc.decode_iptc, iptc.iptc_size),
+    _raw("MCIDAS"),
+    plugins.MPEG,
+    ("TIFF", lambda d: d.startswith(tiff.SIGNATURES), tiff.decode_tiff, tiff.tiff_size),
+    ("MSP", msp.is_msp, msp.decode_msp, msp.msp_size),
+    ("PCD", pcd.is_pcd, pcd.decode_pcd, pcd.pcd_size),
+    _raw("PIXAR"),
+    ("PSD", psd.is_psd, psd.decode_psd, psd.psd_size),
+    ("QOI", qoi.is_qoi, qoi.decode_qoi, qoi.qoi_size),
+    ("SGI", sgi.is_sgi, sgi.decode_sgi, sgi.sgi_size),
+    ("SPIDER", spider.is_spider, spider.decode_spider, spider.spider_size),
+    ("SUN", lambda d: d.startswith(sunras.SIGNATURE), sunras.decode_sunras, sunras.sunras_size),
+    ("TGA", tga.is_tga, tga.decode_tga, tga.tga_size),
+    ("WEBP", webp.is_webp, webp.decode_webp, webp.webp_size),
+    plugins.WMF,
+    ("XBM", xbm.is_xbm, xbm.decode_xbm, xbm.xbm_size),
+    ("XPM", xpm.is_xpm, xpm.decode_xpm, xpm.xpm_size),
+    _raw("XVTHUMB"),
 )
+
+
+def pil_plugin(data: bytes):
+    """(name, reader, failure) of the plugin that PIL's ``Image.open``
+    hands ``data`` to: reader is the port's (decode, size), None for a
+    plugin the port does not read, whose failure is None where PIL reads
+    the file by it and PIL's own error where it opens the file and cannot
+    load it; None where no plugin takes the file."""
+    for entry in _PIL_ORDER:
+        if isinstance(entry[0], tuple):
+            found = plugins.foreign(data, entry)
+            if found is not None:
+                return found[0], None, found[1]
+        elif entry[1](data):
+            return entry[0], entry[2:], None
+    return None
 
 
 def _pil_reader(data: bytes):
     """(decode, size) of the port's reader that PIL's ``Image.open`` hands
     ``data`` to, or None where no plugin takes it; ValueError where a
-    plugin the port does not read would."""
-    for entry in _PIL_ORDER:
-        if isinstance(entry[0], tuple):
-            name = plugins.foreign(data, entry)
-            if name is not None:
-                raise ValueError(f"PIL reads this file by its {name} plugin, which the port "
-                                 f"does not have; the port reads {_FILE_READS}")
-        elif entry[0](data):
-            return entry[1:]
-    return None
+    plugin the port does not read would, or one that PIL opens but cannot
+    load."""
+    found = pil_plugin(data)
+    if found is None or found[1] is not None:
+        return found and found[1]
+    name, _, failure = found
+    if failure is None:
+        raise ValueError(f"PIL reads this file by its {name} plugin, which the port does not "
+                         f"have; the port reads {_FILE_READS}")
+    raise ValueError(f"PIL opens this file by its {name} plugin and then cannot load it "
+                     f"({failure}); the port reads {_FILE_READS}")
 
 
 def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
@@ -112,8 +164,8 @@ def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
     the rule of ``route``: ``"pil"`` (files: PIL's ``convert("RGB")``, the
     format found in PIL's plugin order) or ``"cv2"`` (serve bodies:
     ``cv2.imdecode(..., IMREAD_COLOR)``, which turns a JPEG, PNG or WebP by
-    its EXIF orientation, reads Radiance HDR, and refuses TGA, PCX, SGI,
-    ICO, DDS, QOI and IM; both turn a TIFF by its ``Orientation``). A file
+    its EXIF orientation, reads Radiance HDR, and refuses the formats only
+    PIL reads; both turn a TIFF by its ``Orientation``). A file
     that the route's reference refuses raises, naming the case."""
     if route == "pil":
         reader = _pil_reader(data)

@@ -33,10 +33,13 @@ import numpy as np
 
 from tdnet_torch.data import plugins
 
-__all__ = ["READS", "ROUTES", "is_pcx", "decode_pcx", "pcx_size"]
+__all__ = ["READS", "ROUTES", "is_pcx", "decode_pcx", "pcx_size", "DCX_READS", "is_dcx",
+           "decode_dcx", "dcx_size"]
 
 READS = "PCX (1 bit in 1, 2 or 4 planes; 8 bits in 1 or 3 planes)"
 ROUTES = ("pil", "cv2")
+DCX_READS = "DCX (its first PCX page)"
+DCX_MAGIC = 987654321
 
 
 def accepts(data: bytes) -> bool:
@@ -145,3 +148,58 @@ def decode_pcx(data: bytes, route: str = "pil") -> np.ndarray:
         palette = np.frombuffer(tail, np.uint8, 768, 1).reshape(256, 3)
         return palette[index]
     return np.repeat(index[:, :, None], 3, axis=2)
+
+
+# --- DCX: a directory of PCX pages, of which PIL reads the first
+
+
+def _dcx_page(data: bytes):
+    """The first page's offset, or None where PIL's DCX plugin passes the
+    file on: a directory (up to 1024 offsets, ended by a 0) that ends
+    early, no pages, or a first page that PIL's PCX plugin passes on (its
+    palette is read from the end of the whole file, its pixels after its
+    own header)."""
+    if len(data) < 4 or struct.unpack_from("<I", data)[0] != DCX_MAGIC:
+        return None
+    for i in range(1024):
+        if len(data) < 8 + 4 * i:
+            return None  # struct.error
+        (offset,) = struct.unpack_from("<I", data, 4 + 4 * i)
+        if not offset:
+            break
+        if i == 0:
+            first = offset
+    else:
+        i = 1024
+    if i == 0 or not is_pcx(data[first:]):
+        return None  # no pages (EOFError), or PCX passes the page on
+    return first
+
+
+def is_dcx(data: bytes) -> bool:
+    """PIL's DCX plugin opens it."""
+    return _dcx_page(bytes(data)) is not None
+
+
+def _dcx(data: bytes) -> bytes:
+    data = bytes(data)
+    first = _dcx_page(data)
+    if first is None:
+        raise ValueError(f"not a DCX file PIL opens; this reader takes {DCX_READS}")
+    return data[first:]
+
+
+def dcx_size(data: bytes) -> Tuple[int, int]:
+    """(width, height) of the first page, as PIL's ``.size``."""
+    return pcx_size(_dcx(data))
+
+
+def decode_dcx(data: bytes, route: str = "pil") -> np.ndarray:
+    """DCX bytes -> (H, W, 3) uint8 RGB of the first page, equal to PIL's
+    ``convert("RGB")``; the ``cv2`` route raises (OpenCV does not read
+    DCX)."""
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "cv2":
+        raise ValueError("DCX: OpenCV cannot read it (cv2.imdecode returns None)")
+    return decode_pcx(_dcx(data), route="pil")

@@ -8,25 +8,26 @@ JPEG2000, ICNS, ICO, IM, IMT, IPTC, MCIDAS, MPEG, TIFF, MSP, PCD, PIXAR,
 PSD, QOI, SGI, SPIDER, SUN, TGA, WEBP, WMF, XBM, XPM, XVTHUMB). A plugin
 whose ``_accept`` takes the first 16 bytes (IM, IMT, IPTC, PCD, SPIDER and
 TGA have none: they see every file) gets to ``_open`` it; a
-``SyntaxError``, ``IndexError``, ``TypeError`` or ``struct.error`` there
-passes the file on to the next plugin, any other error ends
-``Image.open``.
+``SyntaxError`` there passes the file on to the next plugin, and so does an
+``IndexError``, ``TypeError``, ``KeyError``, ``EOFError`` or
+``struct.error`` (``ImageFile`` turns each into a ``SyntaxError``), or an
+image with no mode or an empty size; any other error ends ``Image.open``.
 
-:func:`foreign` tells which of the plugins the port does not read would
-take a file before a later reader does: the headers they check are
-modelled here, so that the port refuses what PIL would read by another
-plugin, and goes on where that plugin passes.
+:func:`foreign` tells which of the plugins that the port does not read
+would take a file before a later reader does: the one it still lacks
+(AVIF) and those that PIL opens but cannot load (BUFR, GRIB and
+HDF5, which have no loader; EPS without Ghostscript; MPEG; WMF). Their
+headers are modelled here, so that the port refuses what PIL would take
+by such a plugin, and goes on where that plugin passes.
 """
 
 from __future__ import annotations
 
-import math
-import re
 import struct
-from typing import Optional
+from typing import Optional, Tuple
 
-__all__ = ["PIL_MAX_PIXELS", "check_bomb", "foreign", "AFTER_BMP", "BEFORE_PCX",
-           "BEFORE_DDS", "BEFORE_ICO", "BEFORE_QOI", "BEFORE_TGA"]
+__all__ = ["PIL_MAX_PIXELS", "check_bomb", "foreign", "AVIF", "BUFR", "EPS", "GRIB_HDF5", "MPEG",
+           "WMF"]
 
 # past twice Image.MAX_IMAGE_PIXELS, Image.open raises DecompressionBombError
 PIL_MAX_PIXELS = 2 * 89478485
@@ -43,10 +44,6 @@ def _u32le(b: bytes, at: int = 0) -> int:
     return struct.unpack_from("<I", b, at)[0]
 
 
-def _u32be(b: bytes, at: int = 0) -> int:
-    return struct.unpack_from(">I", b, at)[0]
-
-
 def _u16le(b: bytes, at: int = 0) -> int:
     return struct.unpack_from("<H", b, at)[0]
 
@@ -60,215 +57,61 @@ def _avif(d: bytes) -> bool:
     return d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")
 
 
-def _dib(d: bytes) -> bool:
-    return len(d) >= 4 and _u32le(d) in (12, 40, 52, 56, 64, 108, 124)
-
-
-def _cur(d: bytes) -> bool:
-    """CurImagePlugin's ``_open``: the largest of its entries (an empty list
-    raises TypeError, a short one IndexError or struct.error: each passes
-    the file on), then a BMP header at that entry's offset, whose first 4
-    bytes must be there."""
-    if not d.startswith(b"\0\0\2\0") or len(d) < 6:
-        return False
-    m, pos = b"", 6
-    for _ in range(_u16le(d, 4)):
-        s, pos = d[pos:pos + 16], pos + 16
-        if not m:
-            m = s
-        elif len(s) < 1 or (s[0] > m[0] and (len(s) < 2 or len(m) < 2)):
-            return False
-        elif s[0] > m[0] and s[1] > m[1]:
-            m = s
-    if len(m) < 16:
-        return False
-    return len(d) >= _u32le(m, 12) + 4
-
-
-def _dcx(d: bytes) -> bool:
-    return len(d) >= 4 and _u32le(d) == 987654321
-
-
-def _fli(d: bytes) -> bool:
-    # FliImagePlugin: _accept, then _open's own checks of its first 128
-    # bytes (reserved runs of zeros)
-    return (len(d) >= 128 and _u16le(d, 4) in (0xAF11, 0xAF12) and _u16le(d, 14) in (0, 3)
-            and d[20:22] == bytes(2) and d[42:80] == bytes(38) and d[88:128] == bytes(40))
-
-
-def _gbr(d: bytes) -> bool:
-    # GbrImagePlugin: big-endian header size >= 20, version 1 or 2, a
-    # nonzero size, depth 1 or 4, version 2's magic; a short read raises
-    # struct.error, which passes the file on
-    if len(d) < 20:
-        return False
-    size, version, width, height, depth = struct.unpack(">5I", d[:20])
-    if size < 20 or version not in (1, 2) or width == 0 or height == 0 or depth not in (1, 4):
-        return False
-    return version == 1 or (d[20:24] == b"GIMP" and len(d) >= 28)
-
-
 def _mpeg(d: bytes) -> bool:
-    return d[:4] == b"\0\0\1\xb3"
+    # MpegImagePlugin: a sequence header whose 12-bit width and height are
+    # there (else IndexError) and not 0 (else the size passes the file on)
+    return (d[:4] == b"\0\0\1\xb3" and len(d) >= 7 and (d[4] << 4 | d[5] >> 4) > 0
+            and ((d[5] & 15) << 8 | d[6]) > 0)
 
 
-_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
-
-
-def _imt(d: bytes) -> bool:
-    """ImtImagePlugin's ``_open``: it claims a file whose text header gives
-    a width, a height and ``pixel n8``."""
-    buffer = d[:100]
-    if b"\n" not in buffer:
-        return False
-    pos, width, height, mode = 100, 0, 0, False
-    while True:
-        if buffer:
-            s, buffer = buffer[:1], buffer[1:]
-        else:
-            s, pos = d[pos:pos + 1], pos + 1
-        if not s or s == b"\x0c":
-            break
-        if b"\n" not in buffer:
-            buffer, pos = buffer + d[pos:pos + 100], pos + 100
-        lines = buffer.split(b"\n")
-        s += lines.pop(0)
-        buffer = b"\n".join(lines)
-        if len(s) == 1 or len(s) > 100:
-            break
-        if s[0] == ord(b"*"):
-            continue
-        m = _IMT_FIELD.match(s)
-        if not m:
-            break
-        k, v = m.group(1, 2)
-        try:
-            if k == b"width":
-                width = int(v)
-            elif k == b"height":
-                height = int(v)
-        except ValueError:
-            return True  # int() fails inside _open: Image.open raises
-        if k == b"pixel" and v == b"n8":
-            mode = True
-    return mode and width > 0 and height > 0
-
-
-def _iptc(d: bytes) -> bool:
-    """IptcImagePlugin's ``_open``: fields of ``0x1C``, a record and a
-    dataset number, and a size; a field size past 132 ends ``Image.open``
-    (OSError), as does, once the image fields (3, 60), (3, 20) and (3, 30)
-    are read, a compression field (3, 120) that is missing or unknown.
-    Every other failure is a syntax, index, key or type error, which passes
-    the file on."""
-    pos, info = 0, {}
-    while True:
-        s, pos = d[pos:pos + 5], pos + 5
-        if not s.strip(b"\0"):
-            break
-        if len(s) < 3 or s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+def _wmf(d: bytes) -> bool:
+    """WmfImagePlugin's ``_open``: a placeable metafile (an inch of 0
+    fails; another header than the standard one, or an empty size, passes
+    on) or an enhanced one (a frame of no width or height fails)."""
+    if d.startswith(b"\xd7\xcd\xc6\x9a\0\0"):
+        if len(d) < 16:
             return False
-        if len(s) < 4:
-            return False
-        size = s[3]
-        if size > 132:
+        inch = _u16le(d, 14)
+        if inch == 0:
             return True
-        if size == 128:
-            size = 0
-        elif size > 128:
-            size, pos = int.from_bytes(d[pos:pos + size - 128][-4:], "big"), pos + size - 128
-        elif len(s) < 5:
-            return False
-        else:
-            size = (s[3] << 8) | s[4]
-        tag = (s[1], s[2])
-        if tag == (8, 10):
-            break
-        info[tag], pos = (d[pos:pos + size] if size else None), pos + size
-    mode = info.get((3, 60))
-    if not mode or len(mode) < 2 or not info.get((3, 20)) or not info.get((3, 30)):
-        return False  # KeyError, IndexError or TypeError
-    if (3, 65) in info and not info[(3, 65)]:
-        return False
-    compression = info.get((3, 120))
-    if not compression or int.from_bytes(compression[-4:], "big") not in (1, 5):
-        return True  # unknown IPTC image compression
-    layers, component = mode[0], mode[1]
-    width, height = (int.from_bytes(info[k][-4:], "big") for k in ((3, 20), (3, 30)))
-    known = (layers == 1 and not component) or (layers in (3, 4) and component)
-    return known and width > 0 and height > 0
-
-
-def _pcd(d: bytes) -> bool:
-    return d[2048:2052] == b"PCD_"
-
-
-def _spider_header(t) -> bool:
-    """SpiderImagePlugin's ``isSpiderHeader``: a nonzero header length."""
-    h = (99,) + t
-
-    def integral(f) -> bool:
-        return not (math.isnan(f) or math.isinf(f)) and int(f) == f
-
-    if not all(integral(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
-        return False
-    if int(h[5]) not in (1, 3, -11, -12, -21, -22):
-        return False
-    labrec, labbyt, lenbyt = int(h[13]), int(h[22]), int(h[23])
-    return labbyt != 0 and labbyt == labrec * lenbyt
-
-
-def _spider(d: bytes) -> bool:
-    """SpiderImagePlugin's ``_open``: 27 floats of either byte order that
-    pass its checks, a 2-D image (iform 1) of a consistent stack."""
-    if len(d) < 108:
-        return False
-    for end in "><":
-        h = (99,) + struct.unpack(end + "27f", d[:108])
-        if _spider_header(h[1:]):
-            break
-    else:
-        return False
-    if int(h[5]) != 1:
-        return False
-    try:
-        stack, number = int(h[24]), int(h[27])
-    except (ValueError, OverflowError):
-        return True  # int() of NaN or infinity ends Image.open
-    if stack == 0 and number > 0:
-        return True  # AttributeError (stkoffset) ends Image.open
-    if number != 0 or stack < 0:
-        return False  # inconsistent stack header values
-    return int(h[12]) > 0 and int(h[2]) > 0
+        x0, y0, x1, y1 = struct.unpack_from("<4h", d, 6)
+        size = ((x1 - x0) * 72 // inch, (y1 - y0) * 72 // inch)
+        return d[22:26] == b"\x01\x00\t\x00" and size[0] > 0 and size[1] > 0
+    if d.startswith(b"\x01\0\0\0") and d[40:44] == b" EMF":
+        x0, y0, x1, y1, f0, f1, f2, f3 = struct.unpack_from("<8i", d, 8)
+        if f2 == f0 or f3 == f1:
+            return True
+        return x1 - x0 > 0 and y1 - y0 > 0
+    return False
 
 
 def _magic(prefix: bytes):
     return lambda d: d.startswith(prefix)
 
 
-# (name, claims) of the plugins that PIL offers a file to between the
-# port's readers, in PIL's order; a claim that passes the file on is False
-AFTER_BMP = (("DIB", _dib),)
-BEFORE_PCX = (("AVIF", _avif), ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2")),
-              ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC")), ("CUR", _cur))
-BEFORE_DDS = (("DCX", _dcx),)
-BEFORE_ICO = (("EPS", lambda d: d[:4] == b"%!PS" or (len(d) >= 4 and _u32le(d) == 0xC6D3D0C5)),
-              ("FITS", _magic(b"SIMPLE")), ("FLI", _fli), ("FTEX", _magic(b"FTEX")),
-              ("GBR", _gbr), ("GRIB", lambda d: d[:4] == b"GRIB" and len(d) > 7 and d[7] == 1),
-              ("HDF5", _magic(b"\x89HDF\r\n\x1a\n")), ("ICNS", _magic(b"icns")))
-BEFORE_QOI = (("IMT", _imt), ("IPTC", _iptc), ("MCIDAS", _magic(b"\0\0\0\0\0\0\0\4")),
-              ("MPEG", _mpeg), ("MSP", lambda d: d[:4] in (b"DanM", b"LinS")), ("PCD", _pcd),
-              ("PIXAR", _magic(b"\x80\xe8\0\0")), ("PSD", _magic(b"8BPS")))
-BEFORE_TGA = (("SPIDER", _spider),)
+# (name, claims, PIL's failure) of the plugins that PIL offers a file to
+# between the port's readers, in PIL's order; a claim that passes the file
+# on is False. The failure is None for a plugin that reads the file, which
+# the port lacks; else it is what PIL itself raises once it has opened it.
+_NO_LOADER = "cannot find loader for this {} file"
+AVIF = (("AVIF", _avif, None),)
+BUFR = (("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), _NO_LOADER.format("BUFR")),)
+EPS = (("EPS", lambda d: d[:4] == b"%!PS" or (len(d) >= 4 and _u32le(d) == 0xC6D3D0C5),
+        "Unable to locate Ghostscript on paths"),)
+GRIB_HDF5 = (("GRIB", lambda d: d[:4] == b"GRIB" and len(d) > 7 and d[7] == 1,
+              _NO_LOADER.format("GRIB")),
+             ("HDF5", _magic(b"\x89HDF\r\n\x1a\n"), _NO_LOADER.format("HDF5")))
+MPEG = (("MPEG", _mpeg, "cannot load this image"),)
+WMF = (("WMF", _wmf, _NO_LOADER.format("WMF")),)
 
 
-def foreign(data: bytes, group) -> Optional[str]:
-    """The name of the first plugin of ``group`` (one of the tuples above)
-    that would take ``data``, or None."""
-    for name, claims in group:
+def foreign(data: bytes, group) -> Optional[Tuple[str, Optional[str]]]:
+    """(name, PIL's failure) of the first plugin of ``group`` (one of the
+    tuples above) that would take ``data``, or None."""
+    for name, claims, failure in group:
         try:
             if claims(data):
-                return name
+                return name, failure
         except struct.error:
             continue
     return None

@@ -63,16 +63,25 @@ C3_AT_65x97 = {"seresnet": (9, 13), "vgg": (8, 12), "densenet": (8, 12),
                "mobilenet": (9, 13)}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _release_memory():
-    """Drop this module's executables and trim the C heap its trees leave."""
-    yield
+def _trim():
     jax.clear_caches()
     gc.collect()
     try:
         ctypes.CDLL("libc.so.6").malloc_trim(0)
     except OSError:  # not glibc: nothing to trim
         pass
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_memory():
+    """Before the module, drop the executables that the worker's earlier
+    modules left (the first port file in the collection: in tier-1 its
+    worker has just run reference multi-device tests, and the six workers
+    share the machine's memory); after it, this module's, and trim the C
+    heap its trees leave."""
+    _trim()
+    yield
+    _trim()
 
 
 def _leaves(tree, prefix=()):
@@ -121,26 +130,39 @@ def _close(got, want, tol):
     np.testing.assert_allclose(got, want, rtol=0, atol=tol * scale)
 
 
-@pytest.fixture(scope="module")
-def family_runs():
-    """family -> (port module with the state loaded, state, {size: (raw
+class _FamilyRuns(dict):
+    """family -> (port module with the state loaded, mode, {size: (raw
     uint8 pages, tdnet's taps)}); tdnet's apply runs once per family and
-    size."""
-    out = {}
-    for i, (family, (make, mode)) in enumerate(FAMILIES.items()):
+    size, each when a test first asks for it: a tier-1 worker that runs
+    some of this module's tests pays only for their families and sizes."""
+
+    def __missing__(self, family):
+        i = list(FAMILIES).index(family)
+        make, mode = FAMILIES[family]
         module = make()
         state = _random_state(module, seed=10 + i)
         module.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
         module = module.to(memory_format=torch.channels_last).eval()
-        apply = jax.jit(_flax_family(family).apply)
-        flax_vars = _flax_vars(variables_from_torch_state(state))
-        runs = {}
-        for hw in SIZES:
-            raw = _raw(hw, seed=hw[1])
-            taps = apply(flax_vars, jnp.asarray(_normalize(raw, mode)))
-            runs[hw] = (raw, [np.asarray(t) for t in taps])
-        out[family] = (module, mode, runs)
-    return out
+        self[family] = (module, mode, _Taps(family, mode, state))
+        return self[family]
+
+
+class _Taps(dict):
+    def __init__(self, family, mode, state):
+        super().__init__()
+        self.apply = jax.jit(_flax_family(family).apply)
+        self.mode, self.flax_vars = mode, _flax_vars(variables_from_torch_state(state))
+
+    def __missing__(self, hw):
+        raw = _raw(hw, seed=hw[1])
+        taps = self.apply(self.flax_vars, jnp.asarray(_normalize(raw, self.mode)))
+        self[hw] = (raw, [np.asarray(t) for t in taps])
+        return self[hw]
+
+
+@pytest.fixture(scope="module")
+def family_runs():
+    return _FamilyRuns()
 
 
 @pytest.mark.parametrize("hw", SIZES, ids=lambda hw: f"{hw[0]}x{hw[1]}")

@@ -166,12 +166,16 @@ def test_png_every_filter_type_and_encoder_round_trip():
 def test_unsupported_images_raise(tmp_path):
     """A format the port does not read (AVIF; GIF, WebP and JPEG 2000, once
     the examples here, read since the port gained their decoders) raises,
-    naming what it reads; a .npy page is read as BGR float32; a page
-    written by write_image_bgr reads back."""
+    naming what it reads; so does a file that PIL opens and cannot load (a
+    BUFR stub), naming PIL's failure; a .npy page is read as BGR float32; a
+    page written by write_image_bgr reads back."""
     rng = np.random.RandomState(2)
     a = rng.randint(0, 256, (16, 16, 3)).astype(np.uint8)
     with pytest.raises(ValueError, match="PNG"):
         read_image_bgr(_save_pil(tmp_path, "a.avif", a))
+    (tmp_path / "b.bufr").write_bytes(b"BUFR" + bytes(60))
+    with pytest.raises(ValueError, match="cannot find loader for this BUFR file"):
+        read_image_bgr(tmp_path / "b.bufr")
     np.save(tmp_path / "page.npy", a)
     got = read_image_bgr(tmp_path / "page.npy")
     assert got.dtype == np.float32 and np.array_equal(got, a)

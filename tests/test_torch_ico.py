@@ -7,6 +7,7 @@ depth; then the first; a 0 in the directory meaning 256), a frame whose
 own size differs from its entry's, and the frames PIL fails on; cv2
 refuses ICO."""
 
+import io
 import struct
 
 import numpy as np
@@ -97,3 +98,74 @@ def test_ico_read_image_equals_reference(tmp_path):
     small = dib_frame(Image.fromarray(page((16, 16), 16)).quantize(100))
     assert_read_image_equal(tmp_path, ico_file([(0, 0, 32, 0, big), (16, 16, 8, 0, small)]),
                             "page.ico")
+
+
+# --- CUR (CurImagePlugin): the first entry unless a later one is larger in
+# both of its size bytes, a bitmap at its offset, its height halved
+
+
+def cur_file(frames) -> bytes:
+    """frames: (entry width, entry height, data)."""
+    out = struct.pack("<HHH", 0, 2, len(frames))
+    at, blob = 6 + 16 * len(frames), b""
+    for w, h, data in frames:
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, 0, 0, 1, 1, len(data), at + len(blob))
+        blob += data
+    return out + blob
+
+
+def _cur(d):
+    from tdnet_torch.data import cur
+
+    return cur.decode_cur(d, route="pil")
+
+
+def _cur_size(d):
+    from tdnet_torch.data import cur
+
+    return cur.cur_size(d)
+
+
+@pytest.mark.parametrize("mode", ["1", "P16", "P", "RGB", "RGBA"])
+def test_cur_bitmaps_of_each_depth(mode):
+    im = Image.fromarray(page((11, 19), 20, 4))
+    im = {"1": lambda: im.convert("1"), "P16": lambda: im.convert("RGB").quantize(16),
+          "P": lambda: im.convert("RGB").quantize(200), "RGB": lambda: im.convert("RGB"),
+          "RGBA": lambda: im}[mode]()
+    data = cur_file([(19, 11, dib_frame(im))])
+    assert assert_as_pil(data, _cur, _cur_size)
+    assert Image.open(io.BytesIO(data)).format == "CUR"
+
+
+def test_cur_entry_choice():
+    """A later entry wins only where both its size bytes are larger; the
+    AND mask is neither read nor checked."""
+    a = dib_frame(Image.fromarray(page((8, 8), 21)).quantize(100), mask=False)
+    b = dib_frame(Image.fromarray(page((12, 16), 22)).convert("RGB"))
+    for frames in ([(8, 8, a), (16, 12, b)], [(16, 12, b), (8, 8, a)],
+                   [(8, 8, a), (16, 8, b)], [(0, 0, a), (16, 12, b)]):
+        assert assert_as_pil(cur_file(frames), _cur, _cur_size)
+
+
+@pytest.mark.parametrize("case,opens", [("no_entries", False), ("short_entry", False),
+                                        ("bitmap_outside", False), ("one_row", False),
+                                        ("bad_header", True), ("short_pixels", True)])
+def test_cur_refusals_and_files_passed_on(case, opens):
+    from tdnet_torch.data import cur
+
+    frame = dib_frame(Image.fromarray(page((8, 8), 23)).convert("RGB"))
+    one = bytearray(frame)
+    one[8:12] = struct.pack("<i", 1)
+    data = {"no_entries": struct.pack("<HHH", 0, 2, 0) + bytes(20),
+            "short_entry": cur_file([(8, 8, frame)])[:20],
+            "bitmap_outside": cur_file([(8, 8, frame)])[:24],
+            "one_row": cur_file([(8, 8, bytes(one))]),
+            "bad_header": cur_file([(8, 8, b"\x07" + frame[1:])]),
+            "short_pixels": cur_file([(8, 8, frame[:60])])}[case]
+    assert not assert_as_pil(data)
+    assert cur.is_cur(data) == opens
+
+
+def test_cur_read_image_equals_reference(tmp_path):
+    frame = dib_frame(Image.fromarray(page((24, 20), 24)).convert("RGB"))
+    assert_read_image_equal(tmp_path, cur_file([(20, 24, frame)]), "page.cur")

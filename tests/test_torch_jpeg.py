@@ -1071,8 +1071,8 @@ def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
     """read_image_bgr decodes by content whatever the extension (a PNG
     named .jpg, a JPEG named .png), as PIL does; image_size reads each
     format's header as PIL's .size; TIFF, GIF, WebP and JPEG 2000 pages
-    read; formats the port does not read yet (AVIF) raise, naming what it
-    reads."""
+    read, and so do the formats only PIL reads (a DIB here); formats the
+    port does not read yet (AVIF) raise, naming what it reads."""
     img = _image((21, 34), 11)
     files = {"png.jpg": None, "jpeg.png": _pil_jpeg(img, quality=85),
              "bmp.dat": _pil_bmp(img, "RGB")}
@@ -1100,6 +1100,10 @@ def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
     want = np.asarray(Image.open(tmp_path / "page.gif").convert("RGB"))[:, :, ::-1]
     np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.gif"), want)
     assert image_size(tmp_path / "page.gif") == (34, 21)
+    Image.fromarray(img).save(tmp_path / "page.dib")  # DIB: data/bmp.py
+    want = np.asarray(Image.open(tmp_path / "page.dib").convert("RGB"))[:, :, ::-1]
+    np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.dib"), want)
+    assert image_size(tmp_path / "page.dib") == (34, 21)
     Image.fromarray(img).save(tmp_path / "page.tif")  # TIFF: data/tiff.py
     want = np.asarray(Image.open(tmp_path / "page.tif").convert("RGB"))[:, :, ::-1]
     np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.tif"), want)
@@ -1112,8 +1116,9 @@ def test_no_fallback_decoder(tmp_path):
     lossless), a BMP (raw and RLE8), TIFF pages (LZW with a predictor,
     CCITT G4, JPEG, YCbCr, CIE L*a*b*), a PPM, a gray PFM, a GIF, a
     byte-encoded Sun raster, WebP pages (lossy, lossless, lossy with alpha),
-    an APNG and JPEG 2000 pages (a 9/7 JP2 file and a 5/3 codestream), to
-    the pixels PIL gives."""
+    an APNG, JPEG 2000 pages (a 9/7 JP2 file and a 5/3 codestream) and the
+    pages of PIL's DIB, XBM, MSP, SPIDER and BLP writers, to the pixels PIL
+    gives."""
     img = _image((30, 41), 12)
     page = Image.fromarray(img)
     rle = bytes([3, 1, 3, 2, 0, 0, 2, 3, 4, 0, 0, 0, 6, 1, 0, 0, 0, 1])
@@ -1160,6 +1165,13 @@ def test_no_fallback_decoder(tmp_path):
                      ("r.j2k", dict(no_jp2=True))):
         buf = io.BytesIO()
         page.save(buf, "JPEG2000", **kw)
+        files[name] = buf.getvalue()
+    for name, im, fmt in (("d.dib", page, "DIB"), ("x.xbm", page.convert("1"), "XBM"),
+                          ("m.msp", page.convert("1"), "MSP"),
+                          ("s.spi", page.convert("F"), "SPIDER"),
+                          ("b.blp", page.quantize(60), "BLP")):
+        buf = io.BytesIO()
+        im.save(buf, fmt)
         files[name] = buf.getvalue()
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)

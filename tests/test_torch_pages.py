@@ -2,7 +2,8 @@
 ``data/pnm.py`` and ``data/gif.py`` through the whole slice on the CPU: a
 CSV of a progressive JPEG, a CMYK JPEG, an RLE8 BMP, two TIFFs (CCITT G4,
 LZW with a predictor), a binary PPM, a GIF, a YCbCr LZW TIFF, an
-arithmetic-coded JPEG and a JPEG 2000 file (9/7, two layers) through the
+arithmetic-coded JPEG, a JPEG 2000 file (9/7, two layers), a DIB, a PSD
+and an ICNS through the
 reference's and the port's ``BatchLoader`` (equal batches), then the port's ``Predictor`` and the
 reference's on the decoded pages with the variables
 ``tdnet_torch/weights.py`` carries over (equal detections, at
@@ -26,6 +27,8 @@ ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden" / "pages"
 sys.path.insert(0, str(ROOT / "tools"))
 from jpeg_arith import transcode  # noqa: E402
+from tests.test_torch_icns import element, icns_file  # noqa: E402
+from tests.test_torch_psd import psd_file  # noqa: E402
 
 
 def _page(shape, seed):
@@ -75,10 +78,12 @@ def _save(im: Image.Image, fmt: str, **kw) -> bytes:
 
 @pytest.fixture(scope="module")
 def csv_pages(tmp_path_factory):
-    """annotations.csv and classes.csv over ten pages, one a format."""
+    """annotations.csv and classes.csv over thirteen pages, one a format:
+    among them three that only PIL reads, a DIB from PIL's writer, a
+    PackBits PSD by hand and an ICNS of a PNG icon."""
     root = tmp_path_factory.mktemp("pages")
     shapes = [(64, 96), (96, 64), (70, 100), (64, 96), (100, 70), (64, 96), (96, 64),
-              (70, 100), (64, 96), (96, 64)]
+              (70, 100), (64, 96), (96, 64), (70, 100), (64, 96), (128, 128)]
     makers = {
         "progressive.jpg": lambda im: _save(im, "JPEG", quality=90, progressive=True),
         "cmyk.jpg": lambda im: _save(im.convert("CMYK"), "JPEG", quality=90),
@@ -91,6 +96,10 @@ def csv_pages(tmp_path_factory):
         "ycc_lzw.tif": lambda im: _save(im.convert("YCbCr"), "TIFF", compression="tiff_lzw"),
         "arith.jpg": lambda im: transcode(_save(im, "JPEG", quality=85), progressive=True),
         "page.jp2": lambda im: _save(im, "JPEG2000", irreversible=True, quality_layers=[20, 5]),
+        "page.dib": lambda im: _save(im.quantize(200), "DIB"),
+        "page.psd": lambda im: psd_file(3, 8, 3, [np.asarray(im)[:, :, c] for c in range(3)],
+                                        *im.size, compression=1),
+        "page.icns": lambda im: icns_file(element(b"ic07", _save(im, "PNG"))),
     }
     rows = []
     for i, ((name, make), shape) in enumerate(zip(makers.items(), shapes)):
@@ -202,16 +211,18 @@ def test_golden_pages_equal_their_digests():
     raster, the gray PFM and the 12-bit JPEG on cv2's; the HDR page and
     the 12-bit JPEG on PIL's), and their sizes read from the headers (or
     ``image_size`` raising where PIL cannot open the file). The file lists
-    all 42 pages; this test decodes the cheap ones, the eight of earlier
+    all 62 pages; this test decodes the cheap ones, the eight of earlier
     slices, ycc_lzw.tif, page.pbm, page.gif, rle.ras, vp8l_palette.webp,
-    exif6.png, lab.tif, jpeg12.jpg, gray.pfm, page.hdr and the ten pages
-    only PIL reads (32-bit TIFF, TGA, PCX, SGI, ICO, DDS, QOI and IM, each
-    refused on cv2's route), and leaves the
-    arithmetic-coded and lossless JPEGs, the other WebP pages, the APNG and
-    the four JPEG 2000 pages (SLOW_PAGES) to the card's pages phase, which
-    decodes them all."""
+    exif6.png, lab.tif, jpeg12.jpg, gray.pfm, page.hdr, the ten pages only
+    PIL reads of slice 22 (32-bit TIFF, TGA, PCX, SGI, ICO, DDS, QOI and
+    IM) and the twenty of slice 23 (DIB, CUR, DCX, MSP, XBM, SPIDER, ICNS,
+    BLP, PSD, XPM, FITS, GBR, FTEX, PIXAR, McIDAS, IMT, XV thumbnail, FLC,
+    Photo CD and IPTC), each of these refused on cv2's route, and leaves
+    the arithmetic-coded and lossless JPEGs, the other WebP pages, the APNG
+    and the four JPEG 2000 pages (SLOW_PAGES) to the card's pages phase,
+    which decodes them all."""
     digests = json.loads((GOLDEN / "digests.json").read_text())
-    assert len(digests) == 42
+    assert len(digests) == 62
     for name, info in digests.items():
         if info["size"] is None:
             with pytest.raises(ValueError):

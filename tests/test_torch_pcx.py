@@ -5,6 +5,7 @@ PIL does not write (1 bit in 2 or 4 planes with the header's colours,
 padded lines given or not in the header, runs across a line, a gray
 palette), with each refusal PIL makes; cv2 refuses PCX."""
 
+import io
 import struct
 
 import numpy as np
@@ -102,3 +103,48 @@ def test_pcx_refusals_equal_pil(case):
 def test_pcx_read_image_equals_reference(tmp_path):
     im = Image.fromarray(page((19, 27), 4)).quantize(150)
     assert_read_image_equal(tmp_path, pil_bytes(im, "PCX"), "page.pcx")
+
+
+# --- DCX (DcxImagePlugin): a directory of PCX pages, the first read
+
+
+def dcx_file(pages, terminated=True) -> bytes:
+    at = 4 + 4 * (len(pages) + terminated)
+    offsets, blob = [], b""
+    for p in pages:
+        offsets.append(at + len(blob))
+        blob += p
+    return (struct.pack("<I", 987654321) + struct.pack(f"<{len(pages)}I", *offsets)
+            + (b"\0\0\0\0" if terminated else b"") + blob)
+
+
+def _dcx(d):
+    return pcx.decode_dcx(d, route="pil")
+
+
+@pytest.mark.parametrize("mode", ["RGB", "L", "P", "1"])
+def test_dcx_first_page_equals_pil(mode):
+    a = Image.fromarray(page((9, 14), 30))
+    a = a.quantize(50) if mode == "P" else a.convert(mode)
+    b = Image.fromarray(page((5, 6), 31)).convert("RGB")
+    data = dcx_file([pil_bytes(a, "PCX"), pil_bytes(b, "PCX")])
+    assert assert_as_pil(data, _dcx, pcx.dcx_size)
+    assert Image.open(io.BytesIO(data)).format == "DCX"
+
+
+@pytest.mark.parametrize("case,opens", [("empty", False), ("unterminated", False),
+                                        ("bad_page", False), ("unknown_mode", True)])
+def test_dcx_refusals_and_files_passed_on(case, opens):
+    good = pil_bytes(Image.fromarray(page((4, 4), 32)).convert("RGB"), "PCX")
+    odd = bytearray(good)
+    odd[65] = 2  # 8 bits in 2 planes: PCX fails on it
+    data = {"empty": dcx_file([]), "unterminated": dcx_file([good], terminated=False)[:8],
+            "bad_page": dcx_file([b"\x0b" + good[1:]]),
+            "unknown_mode": dcx_file([bytes(odd)])}[case]
+    assert not assert_as_pil(data)
+    assert pcx.is_dcx(data) == opens
+
+
+def test_dcx_read_image_equals_reference(tmp_path):
+    data = dcx_file([pil_bytes(Image.fromarray(page((20, 31), 33)), "PCX")])
+    assert_read_image_equal(tmp_path, data, "page.dcx")

@@ -55,9 +55,10 @@ def assert_as_pil(data: bytes, decode=None, size=None):
     return True
 
 
-def assert_read_image_equal(tmp_path, data: bytes, name: str):
+def assert_read_image_equal(tmp_path, data: bytes, name: str, body_match="OpenCV cannot read it"):
     """The port's ``read_image_bgr`` and ``image_size`` of a file equal
-    ``tdnet.data.image.read_image_bgr`` and PIL's size, exactly."""
+    ``tdnet.data.image.read_image_bgr`` and PIL's size, exactly; cv2
+    refuses the body, and so does the port's serve route."""
     from tdnet.data.image import read_image_bgr as reference
 
     path = tmp_path / name
@@ -66,7 +67,17 @@ def assert_read_image_equal(tmp_path, data: bytes, name: str):
     assert got.dtype == want.dtype == np.float32
     assert np.array_equal(got, want)
     assert tuple(port_image.image_size(path)) == Image.open(path).size
-    with pytest.raises(ValueError, match="OpenCV cannot read it"):
+    assert_body_refused(data, body_match)
+
+
+def assert_body_refused(data: bytes, match="OpenCV cannot read it"):
+    """``cv2.imdecode`` returns None for the body, and the port's serve
+    route refuses it, naming the format (or, where cv2 takes the body for
+    another format, that format's fault)."""
+    import cv2
+
+    assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match=match):
         port_image.decode_image(data, route="cv2")
 
 

@@ -105,12 +105,32 @@ cv2 refuses each:
 - ``page.qoi``: QOI, RGB;
 - ``page.im``: IM of the page at half size with a 256-colour ``Lut:``.
 
+and twenty pages of the other formats only PIL reads, from a sixth
+generator (seed 33), most at a quarter of the page's size; cv2 refuses
+each: ``page.dib`` (PIL's DIB writer, 256 colours), ``page.cur`` (a
+cursor of an 8-bit bitmap), ``page.dcx`` (one PCX page), ``page.msp``
+(PIL's version 1 of the bilevel page, full size), ``page.xbm`` (PIL's
+writer), ``page.spi`` (PIL's SPIDER writer, the gray levels times 1.25
+less 40.5), ``page.icns`` (a 256 x 256 PNG icon, an RLE 16 x 16 icon and
+its mask), ``page.blp`` (BLP2 DXT1 by this tool's own encoder, half
+size), ``page.psd`` (PackBits RGB, half size), ``page.xpm`` (its
+palette's colours, one character each), ``page.fits`` (8-bit gray),
+``page.gbr`` (a version-2 gray brush), ``page.ftc`` (BC1), ``page.pxr``
+(RGB), ``page.area`` (an 8-bit McIDAS area), ``page.imt``,
+``page.xvt`` (the 3-3-2 thumbnail), ``page.flc`` (a 256-colour chunk and
+a BRUN frame, half size), ``page.pcd`` (the page at 768 x 512 in PhotoYCC
+by the usual coefficients; PIL's decode is its reference) and
+``page.iptc`` (raw gray).
+
 Where a reference refuses a page, ``digests.json`` holds null for its
 digest and the reason under ``refused`` (PIL's exception, or cv2's None or
 one-channel array); a page PIL cannot open has a null ``size``.
 
 The GPU machine has neither PIL nor cv2, so the files are made here and
 committed. Run from the repo root:  python tools/make_pages.py
+``--full-size DIR`` writes instead the twenty pages of seed 33 at the
+page's full size into DIR (no digests), each held to PIL's decode, for
+timing with ``tools/time_page_decodes.py --dir DIR``.
 """
 
 import hashlib
@@ -139,6 +159,7 @@ WEBP_SEED = 9  # the WebP pages' own generator: the pages above keep theirs
 SLICE20_SEED = 13
 J2K_SEED = 17  # the JPEG 2000 pages' own generator
 PIL_ONLY_SEED = 25  # the pages only PIL reads: the first seed from 21 whose ten pages draw
+A1420_SEED = 33  # the formats of A14.20: the first seed from 26 whose twenty pages draw
 
 
 def pil_bytes(im: Image.Image, fmt: str, **kw) -> bytes:
@@ -455,6 +476,275 @@ def pil_only_pages(pages) -> dict:
     }
 
 
+def _dxt1_blocks(rgb) -> bytes:
+    """DXT1 (BC1) blocks of the page: per block the brightest and darkest
+    pixel as 5-6-5 endpoints, the first above the second (four colours),
+    each pixel the nearest of the four by PIL's BLP decoder's rule."""
+    px = _blocks4(rgb)
+    luma = px @ np.array([3, 6, 1])
+    hi = px[np.arange(len(px)), luma.argmax(1)]
+    lo = px[np.arange(len(px)), luma.argmin(1)]
+
+    def q(c):
+        return (c[:, 0] >> 3) << 11 | (c[:, 1] >> 2) << 5 | (c[:, 2] >> 3)
+
+    c0, c1 = q(hi), q(lo)
+    swap = c0 < c1
+    c0, c1 = np.where(swap, c1, c0), np.where(swap, c0, c1)
+    c1 = np.where(c0 == c1, np.maximum(c1 - 1, 0), c1)
+    c0 = np.where(c0 == c1, c0 + 1, c0)
+
+    def rgb565(c):
+        return np.stack([(c >> 11 & 31) << 3, (c >> 5 & 63) << 2, (c & 31) << 3], 1)
+
+    a, b = rgb565(c0), rgb565(c1)
+    table = np.stack([a, b, (2 * a + b) // 3, (2 * b + a) // 3], 1)
+    index = ((px[:, :, None, :] - table[:, None, :, :]) ** 2).sum(3).argmin(2)
+    bits = (index.astype(np.uint64) << (2 * np.arange(16, dtype=np.uint64))).sum(1)
+    out = np.zeros((len(px), 8), np.uint8)
+    out[:, 0:2] = np.stack([c0 & 255, c0 >> 8], 1)
+    out[:, 2:4] = np.stack([c1 & 255, c1 >> 8], 1)
+    out[:, 4:8] = bits.astype("<u4").view(np.uint8).reshape(-1, 4)
+    return out.tobytes()
+
+
+def _packbits(row) -> bytes:
+    out, i, b = bytearray(), 0, bytes(row)
+    while i < len(b):
+        j = i
+        while j < len(b) and j - i < 128 and b[j] == b[i]:
+            j += 1
+        if j - i >= 2:
+            out += bytes([257 - (j - i), b[i]])
+            i = j
+            continue
+        k = i + 1
+        while k < len(b) and k - i < 128 and not (k + 1 < len(b) and b[k] == b[k + 1]):
+            k += 1
+        out += bytes([k - i - 1]) + b[i:k]
+        i = k
+    return bytes(out)
+
+
+def _runs(row, literal):
+    """Runs of a row for FLI BRUN and ICNS: (count, byte) repeats of 3 or
+    more and literal spans up to ``literal`` long between them."""
+    v, x, out = bytes(row), 0, []
+    while x < len(v):
+        n = 1
+        while x + n < len(v) and v[x + n] == v[x] and n < 127:
+            n += 1
+        if n >= 3:
+            out.append((n, v[x:x + 1]))
+        else:
+            n = 1
+            while x + n < len(v) and n < literal and not (
+                    x + n + 2 < len(v) and v[x + n] == v[x + n + 1] == v[x + n + 2]):
+                n += 1
+            out.append((-n, v[x:x + n]))
+        x += n
+    return out
+
+
+def _icns_rle(band) -> bytes:
+    out = bytearray()
+    for n, v in _runs(band.ravel(), 128):
+        while n >= 3 and n > 130:
+            out += bytes([130 + 125]) + v
+            n -= 130
+        out += bytes([n + 125]) + v if n > 0 else bytes([-n - 1]) + v
+    return bytes(out)
+
+
+def _fli(index, palette) -> bytes:
+    """An FLC of one frame: a 256-colour chunk and the BRUN-coded page."""
+    h, w = index.shape
+    body = bytearray()
+    for row in index:
+        body += b"\x01"
+        for n, v in _runs(row, 127):
+            body += bytes([n]) + v if n > 0 else bytes([256 + n]) + v
+
+    def sub(kind, data):
+        chunk = struct.pack("<IH", 6 + len(data), kind) + data
+        return chunk + b"\0" * (len(chunk) % 2)
+
+    subs = sub(4, struct.pack("<H", 1) + b"\0\0" + palette.tobytes()) + sub(15, bytes(body))
+    frame = struct.pack("<IHH", 16 + len(subs), 0xF1FA, 2) + bytes(8) + subs
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + len(frame), 0xAF12, 1, w, h, 8, 0, 5)
+    return bytes(head) + frame
+
+
+def _pcd(rgb) -> bytes:
+    """A Photo CD of the page at 768 x 512: PhotoYCC by the inverse of its
+    usual coefficients (PIL's decode is the digest's reference)."""
+    rgb = np.asarray(Image.fromarray(rgb).resize((768, 512), Image.Resampling.BILINEAR),
+                     np.float64)
+    lum = rgb @ np.array([0.299, 0.587, 0.114])
+    y = np.clip(lum / 1.3584, 0, 255)
+    cb = np.clip(156 + (rgb[:, :, 2] - lum) / 2.2179, 0, 255)
+    cr = np.clip(137 + (rgb[:, :, 0] - lum) / 1.8215, 0, 255)
+    y, cb, cr = (np.rint(v).astype(np.uint8) for v in (y, cb, cr))
+    cb = cb.reshape(256, 2, 384, 2).mean((1, 3)).round().astype(np.uint8)
+    cr = cr.reshape(256, 2, 384, 2).mean((1, 3)).round().astype(np.uint8)
+    pairs = np.concatenate([y.reshape(256, 2 * 768), cb, cr], axis=1)
+    data = bytearray(96 * 2048)
+    data[2048:2052] = b"PCD_"
+    return bytes(data) + pairs.tobytes()
+
+
+def _iptc(gray) -> bytes:
+    h, w = gray.shape
+
+    def field(record, dataset, value):
+        if len(value) < 32768:
+            return bytes([0x1C, record, dataset]) + struct.pack(">H", len(value)) + value
+        return bytes([0x1C, record, dataset, 0x84, 0]) + struct.pack(">I", len(value)) + value
+
+    return (field(2, 0, b"\0\2") + field(3, 60, b"\1\0") + field(3, 20, struct.pack(">H", w))
+            + field(3, 30, struct.pack(">H", h)) + field(3, 120, b"\1")
+            + field(8, 10, gray.tobytes()))
+
+
+def _fits(gray) -> bytes:
+    def card(key, value=""):
+        return (key.ljust(8).encode() + (b"= " + value.encode() if value else b"")).ljust(80)
+
+    h, w = gray.shape
+    head = b"".join([card("SIMPLE", "T"), card("BITPIX", "8"), card("NAXIS", "2"),
+                     card("NAXIS1", str(w)), card("NAXIS2", str(h)), card("END")])
+    head += b" " * (-len(head) % 2880)
+    body = gray[::-1].tobytes()  # FITS rows run from the bottom
+    return head + body + b"\0" * (-len(body) % 2880)
+
+
+def _xpm(page: Image.Image) -> bytes:
+    p = page.quantize(60)
+    index = np.asarray(p)
+    n = int(index.max()) + 1
+    pal = np.asarray(p.getpalette()[:3 * n], np.uint8).reshape(-1, 3)
+    keys = [bytes([48 + i]) for i in range(n)]
+    h, w = index.shape
+    lines = [b"/* XPM */", b"static char *page[] = {", b'"%d %d %d 1",' % (w, h, n)]
+    lines += [b'"' + k + b' c #%02x%02x%02x",' % tuple(c) for k, c in zip(keys, pal)]
+    lines += [b"/* pixels */"]
+    lines += [b'"' + b"".join(keys[i] for i in row) + b'",' for row in index]
+    return b"\n".join(lines) + b"\n};\n"
+
+
+def _psd(rgb) -> bytes:
+    h, w = rgb.shape[:2]
+    rows = [_packbits(r) for c in range(3) for r in rgb[:, :, c]]
+    return (b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, h, w, 8, 3) + bytes(12)
+            + struct.pack(">H", 1) + b"".join(struct.pack(">H", len(r)) for r in rows)
+            + b"".join(rows))
+
+
+def _icns(page: Image.Image) -> bytes:
+    big = pil_bytes(page.resize((256, 256), Image.Resampling.BILINEAR), "PNG")
+    small = np.asarray(page.resize((16, 16), Image.Resampling.BILINEAR))
+    rle = b"".join(_icns_rle(small[:, :, c]) for c in range(3))
+
+    def element(kind, body):
+        return kind + struct.pack(">I", 8 + len(body)) + body
+
+    body = element(b"ic08", big) + element(b"is32", rle) + element(b"s8mk", b"\xff" * 256)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def _cur(page: Image.Image) -> bytes:
+    dib = bytearray(pil_bytes(page.quantize(256), "BMP")[14:])
+    w, h = page.size
+    dib[8:12] = struct.pack("<i", 2 * h)
+    dib += bytes(-(-w // 32) * 4 * h)
+    return (struct.pack("<HHH", 0, 2, 1) + struct.pack("<BBBBHHII", w % 256, h % 256, 0, 0, 1, 1,
+                                                       len(dib), 22) + bytes(dib))
+
+
+def _dcx(page: Image.Image) -> bytes:
+    pcx = pil_bytes(page.quantize(256), "PCX")
+    return struct.pack("<III", 987654321, 12, 0) + pcx
+
+
+def a1420_pages(pages, full=False) -> dict:
+    """The twenty pages of the formats only PIL reads that the port gained
+    in slice 23, drawn from their own generator and appended to ``pages``
+    in the order of the files returned: the golden files at a quarter of
+    the page's size (DCX, BLP, PSD and FLI at half, MSP at full), or all
+    at the page's full size (``full``); the ICNS page is a 256 x 256 icon
+    and the Photo CD's base image is 768 x 512 at either scale."""
+    rng = np.random.default_rng(A1420_SEED)
+    drawn = [table_page(rng, LANDSCAPE) for _ in range(20)]
+    scale = {k: 1 if full else 4 for k in range(20)}
+    if not full:
+        scale.update({2: 2, 3: 1, 7: 2, 8: 2, 17: 2, 18: 1})  # DCX, MSP, BLP, PSD, FLI, PCD
+    for k, f in scale.items():
+        if f > 1:
+            drawn[k] = (np.ascontiguousarray(drawn[k][0][::f, ::f]),
+                        [[v // f for v in b] for b in drawn[k][1]])
+    h18, w18 = drawn[18][0].shape[:2]  # the Photo CD page: its boxes at 768 x 512
+    drawn[18] = (drawn[18][0], [[b[0] * 768 // w18, b[1] * 512 // h18, b[2] * 768 // w18,
+                                 b[3] * 512 // h18] for b in drawn[18][1]])
+    pages += drawn
+    page = [Image.fromarray(p) for p, _ in drawn]
+    gray = [np.asarray(im.convert("L")) for im in page]
+
+    def bilevel(k):
+        return page[k].convert("L").point(lambda v: 255 if v > 160 else 0).convert("1")
+
+    def words(k, values):
+        h, w = gray[k].shape
+        words = [0] * 64
+        words[1], words[8], words[9], words[10], words[13], words[33] = 4, h, w, 1, 1, 256
+        return struct.pack(">64i", *words) + values
+
+    quantized = page[17].quantize(256)
+    flc_palette = np.asarray(quantized.getpalette()[:768], np.uint8)
+    flc_palette = np.pad(flc_palette, (0, 768 - len(flc_palette)))
+    h13, w13 = gray[13].shape
+    pixar = bytearray(1024)
+    pixar[:4] = b"\x80\xe8\0\0"
+    struct.pack_into("<HH", pixar, 416, *drawn[13][0].shape[:2])
+    struct.pack_into("<HH", pixar, 424, 14, 2)
+    h7, w7 = drawn[7][0].shape[:2]
+    blp_mip = _dxt1_blocks(drawn[7][0])
+    blp = (b"BLP2" + struct.pack("<i", 1) + struct.pack("<bbbb", 2, 0, 0, 0)
+           + struct.pack("<II", w7, h7) + struct.pack("<16I", 148 + 1024, *([0] * 15))
+           + struct.pack("<16I", len(blp_mip), *([0] * 15)) + bytes(1024) + blp_mip)
+    h12, w12 = drawn[12][0].shape[:2]
+    bc1 = _dxt1_blocks(drawn[12][0])
+    return {
+        "page.dib": pil_bytes(page[0].quantize(256), "DIB"),
+        "page.cur": _cur(page[1]),
+        "page.dcx": _dcx(page[2]),
+        "page.msp": pil_bytes(bilevel(3), "MSP"),
+        "page.xbm": pil_bytes(bilevel(4), "XBM"),
+        "page.spi": pil_bytes(Image.fromarray(gray[5].astype(np.float32) * np.float32(1.25)
+                                              - np.float32(40.5)), "SPIDER"),
+        "page.icns": _icns(page[6]),
+        "page.blp": blp,
+        "page.psd": _psd(drawn[8][0]),
+        "page.xpm": _xpm(page[9]),
+        "page.fits": _fits(gray[10]),
+        "page.gbr": struct.pack(">5I", 28, 2, *gray[11].shape[::-1], 1) + b"GIMP"
+        + struct.pack(">I", 10) + gray[11].tobytes(),
+        "page.ftc": b"FTEX" + struct.pack("<5i", 0, w12, h12, 1, 1) + struct.pack("<2i", 0, 32)
+        + struct.pack("<i", len(bc1)) + bc1,
+        "page.pxr": bytes(pixar) + drawn[13][0].tobytes(),
+        "page.area": words(14, gray[14].tobytes()),
+        "page.imt": b"* a table page\nwidth %d\nheight %d\npixel n8\n\x0c" % gray[15].shape[::-1]
+        + gray[15].tobytes(),
+        "page.xvt": b"P7 332\n#XVVERSION:Version 2.28\n#END_OF_COMMENTS\n%d %d 255\n"
+        % gray[16].shape[::-1] + (np.asarray(page[16])[:, :, 0] >> 5 << 5
+                                   | np.asarray(page[16])[:, :, 1] >> 5 << 2
+                                   | np.asarray(page[16])[:, :, 2] >> 6).astype(np.uint8).tobytes(),
+        "page.flc": _fli(np.asarray(quantized), flc_palette),
+        "page.pcd": _pcd(drawn[18][0]),
+        "page.iptc": _iptc(gray[19]),
+    }
+
+
 def reference_decodes(data: bytes):
     """(PIL's RGB decode or None, cv2's BGR decode or None, the refusals)."""
     refused = {}
@@ -470,7 +760,26 @@ def reference_decodes(data: bytes):
     return pil, bgr, refused
 
 
+def full_size_pages(out: str) -> None:
+    """Write slice 23's twenty pages at the page's full size into ``out``
+    (for tools/time_page_decodes.py ``--dir``; no digests), each checked to
+    decode by the port's file route as PIL decodes it."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from tdnet_torch.data.image import decode_image
+
+    os.makedirs(out, exist_ok=True)
+    for name, data in a1420_pages([], full=True).items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+        pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        assert np.array_equal(decode_image(data, route="pil"), pil), name
+        print(name, len(data), "bytes", list(Image.open(io.BytesIO(data)).size))
+
+
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--full-size":
+        full_size_pages(sys.argv[2])
+        return
     rng = np.random.default_rng(SEED)
     os.makedirs(OUT, exist_ok=True)
     pages = [table_page(rng, LANDSCAPE) for _ in range(N_PAGES)]
@@ -505,6 +814,7 @@ def main():
     files.update(slice20_pages(pages))
     files.update(j2k_pages(pages))
     files.update(pil_only_pages(pages))
+    files.update(a1420_pages(pages))
     digests = {}
     for (name, data), (_, boxes) in zip(files.items(), pages):
         with open(os.path.join(OUT, name), "wb") as f:
