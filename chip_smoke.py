@@ -3216,7 +3216,10 @@ def phase_pages(dev):
     and an RLE icon, a DXT1 BLP2, a PackBits PSD, an XPM, a FITS page, a
     GBR brush, a BC1 FTEX, a PIXAR page, a McIDAS area, an IMT page, an XV
     thumbnail, a BRUN FLC, a Photo CD base image and an IPTC page; each
-    refused on the body route) decoded by both
+    refused on the body route; and six AVIF pages, read by both routes
+    through the port's AV1 decoder: Pillow's and cv2's default encodes of
+    the full page, lossless 4:4:4, low quality with loop restoration, 4:0:0
+    in tiles and a BT.709 limited-range ``colr``) decoded by both
     routes, each SHA-256 equal to the references' in ``digests.json``,
     each route a reference refuses raising (PIL's on the arithmetic page
     past its first 64 KiB, the 12-bit JPEG and the HDR page; cv2's on the
@@ -3352,7 +3355,8 @@ def phase_pages(dev):
               ".pcx": "image/x-pcx", ".sgi": "image/sgi", ".ico": "image/vnd.microsoft.icon",
               ".dds": "image/vnd-ms.dds", ".qoi": "image/qoi", ".im": "image/x-im",
               ".dib": "image/bmp", ".psd": "image/vnd.adobe.photoshop", ".xbm": "image/x-xbitmap",
-              ".xpm": "image/x-xpixmap", ".fits": "image/fits", ".icns": "image/icns"}
+              ".xpm": "image/x-xpixmap", ".fits": "image/fits", ".icns": "image/icns",
+              ".avif": "image/avif"}
     direct = predictor(thr)
     base, httpd, batcher = _serve(predictor(thr), max_batch=4,
                                   max_delay_ms=SERVE_MAX_DELAY_MS, default_threshold=thr)

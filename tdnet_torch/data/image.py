@@ -6,7 +6,8 @@ reads and ``convert("RGB")`` converts, with the port's own decoders (zlib,
 gzip and numpy), byte for byte as the reference's PIL does: PNG (APNG
 too), JPEG, BMP and DIB, TIFF (``cielab.py`` for Lab), PNM (PFM too), GIF,
 Sun raster, WebP (``vp8.py``, ``vp8l.py``), JPEG 2000 (``jp2.py`` with
-``j2k.py``, ``j2k_t1.py`` and ``j2k_dwt.py``), TGA, PCX and DCX, SGI, ICO,
+``j2k.py``, ``j2k_t1.py`` and ``j2k_dwt.py``), AVIF (``avif.py`` with the
+AV1 decoder of ``av1.py`` and ``yuv_rgb.py``), TGA, PCX and DCX, SGI, ICO,
 CUR, DDS (``bcn.py``), QOI, IM, MSP, XBM, SPIDER, ICNS, BLP, PSD, XPM,
 FITS, FLI, PCD (``photoycc.py``), IPTC and the small raw formats of
 ``raw_plugins.py`` (GBR, FTEX, PIXAR, McIDAS, IMT, XV thumbnails); it
@@ -38,9 +39,9 @@ from typing import Tuple
 
 import numpy as np
 
-from tdnet_torch.data import (blp, bmp, cur, dds, fits, fli, gif, hdr, icns, ico, im, iptc, jp2,
-                               jpeg, msp, pcd, pcx, plugins, png, pnm, psd, qoi, raw_plugins, sgi,
-                               spider, sunras, tga, tiff, webp, xbm, xpm)
+from tdnet_torch.data import (avif, blp, bmp, cur, dds, fits, fli, gif, hdr, icns, ico, im, iptc,
+                               jp2, jpeg, msp, pcd, pcx, plugins, png, pnm, psd, qoi, raw_plugins,
+                               sgi, spider, sunras, tga, tiff, webp, xbm, xpm)
 
 __all__ = [
     "CAFFE_MEAN_BGR",
@@ -63,7 +64,7 @@ _PIL_ONLY_READS = "; ".join([m.READS for m in _PIL_ONLY] + [
     bmp.DIB_READS, cur.READS, pcx.DCX_READS, msp.READS, xbm.READS, spider.READS, icns.READS,
     blp.READS, psd.READS, xpm.READS, fits.READS, raw_plugins.READS, fli.READS, pcd.READS,
     iptc.READS])
-_BOTH = (png, jpeg, bmp, tiff, pnm, gif, sunras, webp, jp2)
+_BOTH = (png, jpeg, bmp, tiff, pnm, gif, sunras, webp, jp2, avif)
 READS = "; ".join([m.READS for m in _BOTH] + [_PIL_ONLY_READS, hdr.READS])
 # what each route reads, for its messages: files all but Radiance HDR, serve
 # bodies all but the formats only PIL reads
@@ -88,7 +89,7 @@ _PIL_ORDER = (
     ("PPM", lambda d: d[:1] == b"P" and d[1:2] != b"" and d[1:2] in b"0123456fy", pnm.decode_pnm,
      pnm.pnm_size),
     ("PNG", lambda d: d.startswith(png.SIGNATURE), png.decode_png, png.png_size),
-    plugins.AVIF,
+    ("AVIF", avif.is_avif, avif.decode_avif, avif.avif_size),
     ("BLP", blp.is_blp, blp.decode_blp, blp.blp_size),
     plugins.BUFR,
     ("CUR", cur.is_cur, cur.decode_cur, cur.cur_size),
@@ -130,9 +131,8 @@ _PIL_ORDER = (
 def pil_plugin(data: bytes):
     """(name, reader, failure) of the plugin that PIL's ``Image.open``
     hands ``data`` to: reader is the port's (decode, size), None for a
-    plugin the port does not read, whose failure is None where PIL reads
-    the file by it and PIL's own error where it opens the file and cannot
-    load it; None where no plugin takes the file."""
+    plugin that PIL opens the file by and cannot load it with, whose
+    failure is PIL's own error; None where no plugin takes the file."""
     for entry in _PIL_ORDER:
         if isinstance(entry[0], tuple):
             found = plugins.foreign(data, entry)
@@ -146,15 +146,11 @@ def pil_plugin(data: bytes):
 def _pil_reader(data: bytes):
     """(decode, size) of the port's reader that PIL's ``Image.open`` hands
     ``data`` to, or None where no plugin takes it; ValueError where a
-    plugin the port does not read would, or one that PIL opens but cannot
-    load."""
+    plugin that PIL opens but cannot load would."""
     found = pil_plugin(data)
     if found is None or found[1] is not None:
         return found and found[1]
     name, _, failure = found
-    if failure is None:
-        raise ValueError(f"PIL reads this file by its {name} plugin, which the port does not "
-                         f"have; the port reads {_FILE_READS}")
     raise ValueError(f"PIL opens this file by its {name} plugin and then cannot load it "
                      f"({failure}); the port reads {_FILE_READS}")
 
@@ -193,6 +189,8 @@ def decode_image(data: bytes, route: str = "pil") -> np.ndarray:
         return webp.decode_webp(data, route=route)
     if jp2.is_jpeg2000(data):
         return jp2.decode_jpeg2000(data, route=route)
+    if avif.is_avif_body(data):
+        return avif.decode_avif(data, route=route)
     if hdr.is_hdr(data):
         return hdr.decode_hdr(data, route=route)
     if route == "cv2":  # what only PIL reads: its reader refuses it by name

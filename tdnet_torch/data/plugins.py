@@ -14,11 +14,11 @@ TGA have none: they see every file) gets to ``_open`` it; a
 image with no mode or an empty size; any other error ends ``Image.open``.
 
 :func:`foreign` tells which of the plugins that the port does not read
-would take a file before a later reader does: the one it still lacks
-(AVIF) and those that PIL opens but cannot load (BUFR, GRIB and
-HDF5, which have no loader; EPS without Ghostscript; MPEG; WMF). Their
-headers are modelled here, so that the port refuses what PIL would take
-by such a plugin, and goes on where that plugin passes.
+would take a file before a later reader does: those that PIL opens but
+cannot load (BUFR, GRIB and HDF5, which have no loader; EPS without
+Ghostscript; MPEG; WMF). Their headers are modelled here, so that the
+port refuses what PIL would take by such a plugin, and goes on where that
+plugin passes.
 """
 
 from __future__ import annotations
@@ -26,8 +26,7 @@ from __future__ import annotations
 import struct
 from typing import Optional, Tuple
 
-__all__ = ["PIL_MAX_PIXELS", "check_bomb", "foreign", "AVIF", "BUFR", "EPS", "GRIB_HDF5", "MPEG",
-           "WMF"]
+__all__ = ["PIL_MAX_PIXELS", "check_bomb", "foreign", "BUFR", "EPS", "GRIB_HDF5", "MPEG", "WMF"]
 
 # past twice Image.MAX_IMAGE_PIXELS, Image.open raises DecompressionBombError
 PIL_MAX_PIXELS = 2 * 89478485
@@ -49,12 +48,6 @@ def _u16le(b: bytes, at: int = 0) -> int:
 
 
 # --- the headers of the plugins the port does not read
-
-
-def _avif(d: bytes) -> bool:
-    # AvifImagePlugin._accept: an ISO box "ftyp" whose major brand is an
-    # AVIF one (the plugin then reads it through libavif)
-    return d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")
 
 
 def _mpeg(d: bytes) -> bool:
@@ -91,10 +84,8 @@ def _magic(prefix: bytes):
 
 # (name, claims, PIL's failure) of the plugins that PIL offers a file to
 # between the port's readers, in PIL's order; a claim that passes the file
-# on is False. The failure is None for a plugin that reads the file, which
-# the port lacks; else it is what PIL itself raises once it has opened it.
+# on is False. The failure is what PIL itself raises once it has opened it.
 _NO_LOADER = "cannot find loader for this {} file"
-AVIF = (("AVIF", _avif, None),)
 BUFR = (("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), _NO_LOADER.format("BUFR")),)
 EPS = (("EPS", lambda d: d[:4] == b"%!PS" or (len(d) >= 4 and _u32le(d) == 0xC6D3D0C5),
         "Unable to locate Ghostscript on paths"),)

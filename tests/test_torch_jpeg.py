@@ -1071,8 +1071,7 @@ def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
     """read_image_bgr decodes by content whatever the extension (a PNG
     named .jpg, a JPEG named .png), as PIL does; image_size reads each
     format's header as PIL's .size; TIFF, GIF, WebP and JPEG 2000 pages
-    read, and so do the formats only PIL reads (a DIB here); formats the
-    port does not read yet (AVIF) raise, naming what it reads."""
+    read, and so do the formats only PIL reads (a DIB here) and AVIF."""
     img = _image((21, 34), 11)
     files = {"png.jpg": None, "jpeg.png": _pil_jpeg(img, quality=85),
              "bmp.dat": _pil_bmp(img, "RGB")}
@@ -1084,10 +1083,10 @@ def test_read_image_sniffs_content_and_image_size_reads_headers(tmp_path):
         got = read_image_bgr(tmp_path / name)
         assert got.dtype == np.float32 and np.array_equal(got, want), name
         assert image_size(tmp_path / name) == Image.open(tmp_path / name).size == (34, 21)
-    Image.fromarray(img).save(tmp_path / "page.avif")
-    for fn in (read_image_bgr, image_size):
-        with pytest.raises(ValueError, match="WebP"):
-            fn(tmp_path / "page.avif")
+    Image.fromarray(img).save(tmp_path / "page.avif")  # AVIF: data/avif.py
+    want = np.asarray(Image.open(tmp_path / "page.avif").convert("RGB"))[:, :, ::-1]
+    np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.avif"), want)
+    assert image_size(tmp_path / "page.avif") == Image.open(tmp_path / "page.avif").size
     Image.fromarray(img).save(tmp_path / "page.jp2")  # JPEG 2000: data/jp2.py
     want = np.asarray(Image.open(tmp_path / "page.jp2").convert("RGB"))[:, :, ::-1]
     np.testing.assert_array_equal(read_image_bgr(tmp_path / "page.jp2"), want)

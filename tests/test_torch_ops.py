@@ -219,7 +219,9 @@ for name in ("ops.losses", "ops.targets", "ops.stem_vjp", "train.step",
              "ops.block", "ops.conv1x1", "utils.msgpack", "models.io",
              "data.png", "data.csv_dataset", "utils.eval", "bin.predict",
              "bin.evaluate", "bin.serve", "compat.hdf5", "compat.keras_import",
-             "data.transform", "train.events", "bin.train"):
+             "data.transform", "train.events", "bin.train", "data.avif", "data.av1",
+             "data.av1_block", "data.av1_filters", "data.av1_obu", "data.av1_predict",
+             "data.av1_symbol", "data.av1_tables", "data.av1_transform", "data.yuv_rgb"):
     assert "tdnet_torch." + name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",

@@ -201,7 +201,8 @@ def test_predictor_over_the_pages_matches_reference(csv_pages):
 SLOW_PAGES = ("arith_seq.jpg", "arith_prog.jpg", "arith_big.jpg", "lossless.jpg",
               "vp8l_rgb.webp", "vp8_q80.webp", "vp8x_alpha.webp", "vp8x_exif6.webp",
               "vp8_simple4.webp", "apng_default.png", "j2k_97.jp2", "j2k_rpcl.j2k",
-              "j2k_cv2.jp2", "j2k_gray16.jp2")
+              "j2k_cv2.jp2", "j2k_gray16.jp2", "avif_pil.avif", "avif_cv2.avif",
+              "avif_444_q100.avif")
 
 
 def test_golden_pages_equal_their_digests():
@@ -211,18 +212,20 @@ def test_golden_pages_equal_their_digests():
     raster, the gray PFM and the 12-bit JPEG on cv2's; the HDR page and
     the 12-bit JPEG on PIL's), and their sizes read from the headers (or
     ``image_size`` raising where PIL cannot open the file). The file lists
-    all 62 pages; this test decodes the cheap ones, the eight of earlier
+    all 68 pages; this test decodes the cheap ones, the eight of earlier
     slices, ycc_lzw.tif, page.pbm, page.gif, rle.ras, vp8l_palette.webp,
     exif6.png, lab.tif, jpeg12.jpg, gray.pfm, page.hdr, the ten pages only
     PIL reads of slice 22 (32-bit TIFF, TGA, PCX, SGI, ICO, DDS, QOI and
     IM) and the twenty of slice 23 (DIB, CUR, DCX, MSP, XBM, SPIDER, ICNS,
     BLP, PSD, XPM, FITS, GBR, FTEX, PIXAR, McIDAS, IMT, XV thumbnail, FLC,
-    Photo CD and IPTC), each of these refused on cv2's route, and leaves
-    the arithmetic-coded and lossless JPEGs, the other WebP pages, the APNG
-    and the four JPEG 2000 pages (SLOW_PAGES) to the card's pages phase,
-    which decodes them all."""
+    Photo CD and IPTC), each of these refused on cv2's route, and three of
+    the six AVIF pages (the restored low-quality, 4:0:0 tiled and BT.709
+    limited-range ones), and leaves the arithmetic-coded and lossless
+    JPEGs, the other WebP pages, the APNG, the four JPEG 2000 pages and the
+    full-size and lossless AVIF pages (SLOW_PAGES) to the card's pages
+    phase, which decodes them all."""
     digests = json.loads((GOLDEN / "digests.json").read_text())
-    assert len(digests) == 62
+    assert len(digests) == 68
     for name, info in digests.items():
         if info["size"] is None:
             with pytest.raises(ValueError):

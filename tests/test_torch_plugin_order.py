@@ -77,11 +77,11 @@ def test_a_pcx_prefix_pcx_passes_on_reads_as_tga():
     ("mpeg", "MPEG"), ("avif", "AVIF"), ("bufr", "BUFR"), ("grib", "GRIB"), ("hdf5", "HDF5"),
     ("eps", "EPS"), ("wmf", "WMF")])
 def test_files_a_plugin_the_port_lacks_takes_first(case, plugin, tmp_path):
-    """PIL hands these to the plugin the port does not have (AVIF) or to
-    one that opens the file and then cannot load it (BUFR, GRIB, HDF5: no
-    loader; EPS: no Ghostscript; MPEG; WMF), before the TGA (or any)
-    reader: the port refuses them, naming the plugin, and for the second
-    kind PIL's own failure."""
+    """PIL hands these to a plugin that opens the file and then cannot load
+    it (BUFR, GRIB, HDF5: no loader; EPS: no Ghostscript; MPEG; WMF), or
+    to its AVIF plugin, which fails in its ``_open`` on this stub, before
+    the TGA (or any) reader: the port refuses them, naming the plugin and
+    PIL's own failure, or (AVIF) in its own AVIF reader as PIL does."""
     tga_body = bytes(12)
     data = {
         "mpeg": b"\0\0\1\xb3\x10\x00\x80" + tga_file(tga_body, 2, 2, 2, 24)[7:],
@@ -103,13 +103,13 @@ def test_files_a_plugin_the_port_lacks_takes_first(case, plugin, tmp_path):
         failure = str(pil_failure.value)
     except Exception:  # noqa: BLE001 (the plugin fails in its _open: Image.open ends)
         failure = None
-    match = f"by its {plugin} plugin"
+    match = "AVIF .*PIL refuses it" if plugin == "AVIF" else f"by its {plugin} plugin"
     with pytest.raises(ValueError, match=match) as got:
         port_image.decode_image(data, route="pil")
     if plugin in ("BUFR", "GRIB", "HDF5", "EPS", "MPEG", "WMF"):
         assert "cannot load it" in str(got.value) and failure in str(got.value)
     else:
-        assert "which the port does not have" in str(got.value)
+        assert failure is None and port_image.pil_plugin(data)[0] == "AVIF"
     path = tmp_path / "page"
     path.write_bytes(data)
     with pytest.raises(ValueError, match=match):

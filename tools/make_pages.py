@@ -122,6 +122,22 @@ a BRUN frame, half size), ``page.pcd`` (the page at 768 x 512 in PhotoYCC
 by the usual coefficients; PIL's decode is its reference) and
 ``page.iptc`` (raw gray).
 
+and six AVIF pages from a seventh generator (seed 42), read by both
+routes (PIL's libavif 1.3.0, cv2's 1.4.2):
+- ``avif_pil.avif``: Pillow's default encode of the full page (libaom's
+  all-intra screen-content tools: palette, intra block copy, 128x128
+  superblocks, 2x2 tiles);
+- ``avif_cv2.avif``: cv2's default encode of the full page (quantizer
+  matrices, delta q, deblocking, CDEF);
+- ``avif_444_q100.avif``: 4:4:4 at quality 100 (lossless blocks, the WHT),
+  a quarter of the page's size;
+- ``avif_lowq_lr.avif``: quality 15, speed 0, loop restoration on and the
+  screen tools off (heavy deblocking, switchable restoration units), a
+  quarter size;
+- ``avif_400_tiles.avif``: 4:0:0 in 2x2 tiles, a quarter size;
+- ``avif_709_limited.avif``: 4:2:2 at quality 70, its ``colr`` rewritten
+  by tools/avif_rewrite.py to BT.709 limited range, a quarter size.
+``--avif`` remakes only these six and their ``digests.json`` entries.
 Where a reference refuses a page, ``digests.json`` holds null for its
 digest and the reason under ``refused`` (PIL's exception, or cv2's None or
 one-channel array); a page PIL cannot open has a null ``size``.
@@ -149,6 +165,7 @@ from jpeg_arith import transcode  # noqa: E402
 from jpeg_lossless import encode as lossless_jpeg  # noqa: E402
 from make_jpeg_pages import LANDSCAPE, table_page  # noqa: E402
 from webp_rewrite import rewrite as webp_rewrite  # noqa: E402
+import avif_rewrite  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "golden", "pages")
 SEED = 8  # the first seed whose pages table_page draws without an empty range
@@ -160,6 +177,7 @@ SLICE20_SEED = 13
 J2K_SEED = 17  # the JPEG 2000 pages' own generator
 PIL_ONLY_SEED = 25  # the pages only PIL reads: the first seed from 21 whose ten pages draw
 A1420_SEED = 33  # the formats of A14.20: the first seed from 26 whose twenty pages draw
+AVIF_SEED = 42  # the AVIF pages: the first seed from 41 whose six pages draw
 
 
 def pil_bytes(im: Image.Image, fmt: str, **kw) -> bytes:
@@ -745,6 +763,31 @@ def a1420_pages(pages, full=False) -> dict:
     }
 
 
+def avif_pages(pages) -> dict:
+    """The six AVIF pages, drawn from their own generator and appended to
+    ``pages`` in the order of the files returned."""
+    rng = np.random.default_rng(AVIF_SEED)
+    drawn = [table_page(rng, LANDSCAPE) for _ in range(6)]
+    for k in range(2, 6):
+        drawn[k] = (np.ascontiguousarray(drawn[k][0][::2, ::2]),
+                    [[v // 2 for v in b] for b in drawn[k][1]])
+    pages += drawn
+    page = [Image.fromarray(p) for p, _ in drawn]
+    payload, props = avif_rewrite.items(pil_bytes(page[5], "AVIF", quality=70,
+                                                  subsampling="4:2:2"))
+    props[b"colr"] = avif_rewrite.nclx(1, 1, 1, False)
+    return {
+        "avif_pil.avif": pil_bytes(page[0], "AVIF"),
+        "avif_cv2.avif": cv2.imencode(".avif", drawn[1][0][:, :, ::-1].copy())[1].tobytes(),
+        "avif_444_q100.avif": pil_bytes(page[2], "AVIF", quality=100, subsampling="4:4:4"),
+        "avif_lowq_lr.avif": pil_bytes(page[3], "AVIF", quality=15, speed=0, advanced={
+            "enable-restoration": "1", "enable-intrabc": "0", "enable-palette": "0"}),
+        "avif_400_tiles.avif": pil_bytes(page[4], "AVIF", subsampling="4:0:0", tile_rows=1,
+                                         tile_cols=1),
+        "avif_709_limited.avif": avif_rewrite.write(payload, props),
+    }
+
+
 def reference_decodes(data: bytes):
     """(PIL's RGB decode or None, cv2's BGR decode or None, the refusals)."""
     refused = {}
@@ -758,6 +801,46 @@ def reference_decodes(data: bytes):
     elif bgr.ndim == 2:
         bgr, refused["cv2"] = None, "cv2.imdecode returned one channel, not a BGR page"
     return pil, bgr, refused
+
+
+def page_digest(name: str, data: bytes, boxes) -> dict:
+    """The ``digests.json`` entry of one page."""
+    pil, bgr, refused = reference_decodes(data)
+    assert len(refused) < 2 or name == "jpeg12.jpg", (name, refused)  # both refuse it
+    decoded = bgr if bgr is not None else pil
+    try:
+        size = list(Image.open(io.BytesIO(data)).size)
+    except OSError:  # PIL cannot open it: image_size raises
+        size = None
+    entry = {
+        "bytes": len(data),
+        "size": size,
+        "cv2_shape": None if decoded is None else list(decoded.shape),
+        "pil_rgb_sha256": None if pil is None else hashlib.sha256(pil.tobytes()).hexdigest(),
+        "cv2_bgr_sha256": None if bgr is None else hashlib.sha256(bgr.tobytes()).hexdigest(),
+        "routes_equal": None if refused else bool(np.array_equal(pil, bgr[:, :, ::-1])),
+        "boxes": [[int(v) for v in b] for b in boxes],
+    }
+    if refused:
+        entry["refused"] = refused
+    print(name, len(data), "bytes", entry["size"], refused or (
+        "routes equal" if entry["routes_equal"] else "routes differ"))
+    return entry
+
+
+def avif_only() -> None:
+    """Remake the AVIF pages and their entries of ``digests.json`` alone."""
+    path = os.path.join(OUT, "digests.json")
+    with open(path) as f:
+        digests = json.load(f)
+    pages = []
+    for (name, data), (_, boxes) in zip(avif_pages(pages).items(), pages):
+        with open(os.path.join(OUT, name), "wb") as f:
+            f.write(data)
+        digests[name] = page_digest(name, data, boxes)
+    with open(path, "w") as f:
+        json.dump(digests, f, indent=1)
+        f.write("\n")
 
 
 def full_size_pages(out: str) -> None:
@@ -779,6 +862,9 @@ def full_size_pages(out: str) -> None:
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--full-size":
         full_size_pages(sys.argv[2])
+        return
+    if sys.argv[1:] == ["--avif"]:
+        avif_only()
         return
     rng = np.random.default_rng(SEED)
     os.makedirs(OUT, exist_ok=True)
@@ -815,30 +901,12 @@ def main():
     files.update(j2k_pages(pages))
     files.update(pil_only_pages(pages))
     files.update(a1420_pages(pages))
+    files.update(avif_pages(pages))
     digests = {}
     for (name, data), (_, boxes) in zip(files.items(), pages):
         with open(os.path.join(OUT, name), "wb") as f:
             f.write(data)
-        pil, bgr, refused = reference_decodes(data)
-        assert len(refused) < 2 or name == "jpeg12.jpg", (name, refused)  # both refuse it
-        decoded = bgr if bgr is not None else pil
-        try:
-            size = list(Image.open(io.BytesIO(data)).size)
-        except OSError:  # PIL cannot open it: image_size raises
-            size = None
-        digests[name] = {
-            "bytes": len(data),
-            "size": size,
-            "cv2_shape": None if decoded is None else list(decoded.shape),
-            "pil_rgb_sha256": None if pil is None else hashlib.sha256(pil.tobytes()).hexdigest(),
-            "cv2_bgr_sha256": None if bgr is None else hashlib.sha256(bgr.tobytes()).hexdigest(),
-            "routes_equal": None if refused else bool(np.array_equal(pil, bgr[:, :, ::-1])),
-            "boxes": [[int(v) for v in b] for b in boxes],
-        }
-        if refused:
-            digests[name]["refused"] = refused
-        print(name, len(data), "bytes", digests[name]["size"], refused or (
-            "routes equal" if digests[name]["routes_equal"] else "routes differ"))
+        digests[name] = page_digest(name, data, boxes)
     with open(os.path.join(OUT, "digests.json"), "w") as f:
         json.dump(digests, f, indent=1)
         f.write("\n")
